@@ -6,18 +6,23 @@ port is held against (tests/test_torch_*.py). This package imports ``torch``
 and never ``jax`` or ``dr3_tpu``.
 
 Ported so far: the monocular VO main path (``pipelines.vo.MonoVO.process``
-with ``Config(loop_closure=False)``) and its three hand-written CUDA kernels
-(``csrc/lk.cu``, ``csrc/sample.cu``, ``csrc/detect.cu``), built with nvcc
-for ``sm_90a`` on first use (``ops/_native.py``). On a CPU tensor each
-kernel wrapper runs its plain PyTorch twin instead.
+with ``Config(loop_closure=False)``), the stitch/panorama path
+(``pipelines.stitch``, ``pipelines.panorama``, ``run_panorama``), and their
+hand-written CUDA kernels (``csrc/lk.cu``, ``csrc/sample.cu``,
+``csrc/detect.cu``, ``csrc/warp.cu``), built with nvcc for ``sm_90a`` on
+first use (``ops/_native.py``). On a CPU tensor each kernel wrapper runs
+its plain PyTorch twin instead.
 
 Package layout (as dr3_tpu):
-  dr3_tpu_torch.geometry   SO3/SE3, small linear algebra, epipolar, RANSAC
+  dr3_tpu_torch.geometry   SO3/SE3, small linear algebra, epipolar,
+                           homography, RANSAC
   dr3_tpu_torch.models     pinhole camera
-  dr3_tpu_torch.ops        pyramid, bilinear sampling, LK, sparse alignment,
-                           corners, and the CUDA kernel loader
+  dr3_tpu_torch.ops        pyramid, sampling and warps, LK, sparse
+                           alignment, corners, matching, blending, and the
+                           CUDA kernel loader
   dr3_tpu_torch.ba         BA problem, Schur core (pcg), LM drivers
-  dr3_tpu_torch.pipelines  two-view init, MonoVO
+  dr3_tpu_torch.io         image files
+  dr3_tpu_torch.pipelines  two-view init, MonoVO, Stitch, Panorama
   dr3_tpu_torch.utils      config, timing, numpy scene renderer
   dr3_tpu_torch.viz        trajectory error (numpy)
 """

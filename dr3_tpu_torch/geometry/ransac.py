@@ -7,7 +7,8 @@ pre-sampled 8-point sets, src/initialization.cpp:48-64).
 Random numbers come from a ``torch.Generator`` where JAX takes a PRNG key;
 the two give different sets from the same seed, so ``ransac`` also accepts
 precomputed indices and the parity tests hand both packages the same sets.
-``ransac_homography`` belongs to the stitch slice and is not ported yet.
+The sets are drawn on the generator's device and moved to the data's, so a
+CPU generator gives the card and the CPU the same draws.
 """
 
 from __future__ import annotations
@@ -16,7 +17,7 @@ from typing import Callable, NamedTuple
 
 import torch
 
-from dr3_tpu_torch.geometry import epipolar
+from dr3_tpu_torch.geometry import epipolar, homography
 
 
 class RansacResult(NamedTuple):
@@ -31,15 +32,16 @@ def sample_minimal_sets(generator: torch.Generator | None, n_points: int,
                         sample_size: int) -> torch.Tensor:
     """[n_samples, sample_size] indices drawn ~uniformly from valid points:
     Gumbel top-k per hypothesis over the weight mask (ransac.py:42-45) —
-    distinct indices within a set, never a masked row."""
-    dev = weights.device
-    logits = torch.where(weights > 0, torch.zeros_like(weights),
-                         torch.full_like(weights, -1e30))
+    distinct indices within a set, never a masked row. Drawn on the
+    generator's device, returned on the weights'."""
+    dev = generator.device if generator is not None else weights.device
+    w = weights.to(dev)
+    logits = torch.where(w > 0, torch.zeros_like(w), torch.full_like(w, -1e30))
     u = torch.rand((n_samples, n_points), generator=generator,
                    dtype=torch.float32, device=dev)
     tiny = torch.finfo(torch.float32).tiny
     g = -torch.log(-torch.log(torch.clamp(u, min=tiny))) + logits[None, :]
-    return torch.topk(g, sample_size, dim=-1).indices
+    return torch.topk(g, sample_size, dim=-1).indices.to(weights.device)
 
 
 def ransac(generator: torch.Generator | None,
@@ -95,3 +97,28 @@ def ransac_fundamental(generator: torch.Generator | None, p1: torch.Tensor,
 
     return ransac(generator, fit, score, p1, p2, weights, n_samples, 8, refit,
                   refit_rounds=3, sample_idx=sample_idx)
+
+
+def ransac_homography(generator: torch.Generator | None, src: torch.Tensor,
+                      dst: torch.Tensor, weights: torch.Tensor,
+                      n_samples: int = 500, threshold: float = 5.0,
+                      translate_only: bool = False,
+                      sample_idx: torch.Tensor | None = None) -> RansacResult:
+    """Homography RANSAC with stitch-parity semantics (src/stitch.cpp:101-153):
+    minimal sets of 4 (homography) or 1 (translation), forward-transfer
+    inlier test at ``threshold`` px, one least-squares refit on the
+    inliers. All ``n_samples`` hypotheses are fitted as one batch."""
+    sample_size = 1 if translate_only else 4
+    fit_fn = homography.fit_translation if translate_only else homography.fit_homography
+
+    def score(H):
+        # H [..., 3, 3] against every match -> scores [...], inliers [..., N]
+        err = homography.transfer_error(H[..., None, :, :], src, dst)
+        inl = (err < threshold) & (weights > 0)
+        return inl.to(torch.float32).sum(-1), inl
+
+    def refit(H, inl):
+        return fit_fn(src, dst, inl.to(src.dtype))
+
+    return ransac(generator, fit_fn, score, src, dst, weights, n_samples, sample_size, refit,
+                  sample_idx=sample_idx)

@@ -111,3 +111,64 @@ def render_scene(cam, T, tex_near, tex_far, z_near=6.0, z_far=14.0,
 
     img = np.where(near_mask, lookup(tex_near, pw_n), lookup(tex_far, pw_f))
     return img.astype(np.float32)
+
+
+# ---------------------------------------------------------------------------
+# panorama views: a pinhole camera turning about its y axis inside a
+# textured sphere
+# ---------------------------------------------------------------------------
+
+def sphere_texture(rng, px_per_rad: float, lon=(-np.pi, np.pi),
+                   lat=(-np.pi / 2, np.pi / 2)):
+    """Equirectangular RGB texture [h, w, 3] in [0, 1] over the given
+    longitude / latitude ranges at ``px_per_rad`` texels per radian: a
+    thresholded blob pattern shared by the channels (FAST-friendly, as
+    tests/test_stitch_panorama.py scene()) plus fine noise per channel.
+    Texel (tx, ty) holds longitude lon[0] + tx / px_per_rad and latitude
+    lat[0] + ty / px_per_rad."""
+    h = int(np.ceil((lat[1] - lat[0]) * px_per_rad)) + 2
+    w = int(np.ceil((lon[1] - lon[0]) * px_per_rad)) + 2
+    base = ndimage.gaussian_filter(rng.uniform(0, 1, (h, w)), 4.0)
+    binary = (base > np.median(base)).astype(np.float32)
+    chans = []
+    for gain in (0.75, 0.65, 0.55):
+        soft = ndimage.gaussian_filter(rng.uniform(0, 1, (h, w)), 1.5)
+        chans.append(gain * binary + (1.0 - gain) * soft)
+    return np.stack(chans, axis=-1).astype(np.float32)
+
+
+def _yaw_matrix(yaw: float) -> np.ndarray:
+    c, s = np.cos(yaw), np.sin(yaw)
+    return np.array([[c, 0.0, s], [0.0, 1.0, 0.0], [-s, 0.0, c]])
+
+
+def render_sphere_view(tex, px_per_rad: float, lon0: float, lat0: float,
+                       fx: float, fy: float, cx: float, cy: float,
+                       width: int, height: int, yaw: float) -> np.ndarray:
+    """[height, width, 3] view of a camera at the sphere's centre turned by
+    ``yaw`` about y (the view centre looks at longitude ``yaw``). The ray of
+    pixel (x, y) goes to longitude / latitude and a bilinear lookup in
+    ``tex`` (texel (0, 0) at (lon0, lat0)). Two such views differ by the
+    exact homography :func:`sphere_homography`, and after the spherical
+    pre-warp with focal fx by a horizontal shift of fx * (yaw difference)."""
+    ys, xs = np.mgrid[0:height, 0:width].astype(np.float64)
+    d = np.stack([(xs - cx) / fx, (ys - cy) / fy, np.ones_like(xs)], -1) @ _yaw_matrix(yaw).T
+    lon = np.arctan2(d[..., 0], d[..., 2])
+    lat = np.arctan2(d[..., 1], np.hypot(d[..., 0], d[..., 2]))
+    th, tw = tex.shape[:2]
+    tx = np.clip((lon - lon0) * px_per_rad, 0.0, tw - 1.001)
+    ty = np.clip((lat - lat0) * px_per_rad, 0.0, th - 1.001)
+    x0 = tx.astype(np.int64)
+    y0 = ty.astype(np.int64)
+    ax = (tx - x0)[..., None]
+    ay = (ty - y0)[..., None]
+    out = ((1 - ay) * ((1 - ax) * tex[y0, x0] + ax * tex[y0, x0 + 1])
+           + ay * ((1 - ax) * tex[y0 + 1, x0] + ax * tex[y0 + 1, x0 + 1]))
+    return out.astype(np.float32)
+
+
+def sphere_homography(fx: float, fy: float, cx: float, cy: float, yaw: float) -> np.ndarray:
+    """3x3 H = K R_y(yaw) K^-1 taking pixels of the view turned by ``yaw``
+    into pixels of the view at yaw 0 (float64)."""
+    K = np.array([[fx, 0.0, cx], [0.0, fy, cy], [0.0, 0.0, 1.0]])
+    return K @ _yaw_matrix(yaw) @ np.linalg.inv(K)

@@ -8,7 +8,7 @@ which imports it, is skipped):
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest
 
 The CPU parity of the twins themselves is in tests/test_torch_lk.py,
-test_torch_sparse_align.py and test_torch_corners.py.
+test_torch_sparse_align.py, test_torch_corners.py and test_torch_warp.py.
 """
 
 import zlib
@@ -19,6 +19,7 @@ import torch
 from scipy import ndimage
 
 from dr3_tpu_torch.ops import corners, lk
+from dr3_tpu_torch.ops import warp as tw
 from dr3_tpu_torch.ops.pyramid import build_pyramid
 
 pytestmark = pytest.mark.cuda
@@ -105,3 +106,98 @@ def test_wrappers_reject_bad_inputs(dev):
         corners.corner_response(img.t(), 10.0)           # not contiguous
     levels = build_pyramid(img, 2)
     assert corners.corner_response(levels[1].contiguous(), 10.0).shape == (16, 16)
+
+
+# ---------------------------------------------------------------------------
+# K4 (csrc/warp.cu): remap over a given field, and the warps that compute
+# their own field, against the plain versions on the same card. The kernel
+# rounds every step as the plain PyTorch ops do, so values agree to 1e-5
+# and validity to at most 3 knife-edge flips (tests/test_torch_warp.py).
+# ---------------------------------------------------------------------------
+
+H_TILT = np.asarray([[1.02, 0.03, 4.0], [-0.02, 0.98, -2.5],
+                     [1e-5, -2e-5, 1.0]], np.float32)
+
+
+def _k4_close(got, want, got_valid=None, want_valid=None):
+    if got_valid is not None:
+        assert int((got_valid != want_valid).sum()) <= 3
+        both = got_valid & want_valid
+        got, want = got[both], want[both]
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-5, equal_nan=True)
+
+
+def _k4_img(rng, dev, hw, c):
+    shape = hw if c == 1 else hw + (c,)
+    return torch.as_tensor(rng.uniform(0, 1, shape).astype(np.float32), device=dev)
+
+
+@pytest.mark.parametrize("hw", [(93, 201), (1, 1)])
+@pytest.mark.parametrize("c", [1, 3])
+def test_k4_warps_match_plain(rng, dev, hw, c):
+    img = _k4_img(rng, dev, hw, c)
+    out_hw = (hw[0] + 7, hw[1] + 13)
+    got, gv = tw.warp_perspective(img, H_TILT, out_hw, fill=0.3)
+    want, wv = tw._warp_perspective_plain(img, tw.homography_inverse(H_TILT), out_hw, 0.3)
+    assert got.shape == want.shape and gv.shape == out_hw
+    _k4_close(got, want, gv, wv)
+    for f in (150.0, 300.0):
+        _k4_close(tw.warp_spherical(img, f), tw._warp_field(img, tw._SPHERICAL, f))
+        _k4_close(tw.warp_cylindrical(img, f), tw._warp_field(img, tw._CYLINDRICAL, f))
+
+
+@pytest.mark.parametrize("hw", [(93, 201), (1, 1)])
+@pytest.mark.parametrize("c", [1, 3])
+@pytest.mark.parametrize("clamp", [False, True])
+def test_k4_remap_matches_plain(rng, dev, hw, c, clamp):
+    img = _k4_img(rng, dev, hw, c)
+    h, w = hw
+    xy = np.stack([rng.uniform(-4, w + 4, (37, 11)), rng.uniform(-4, h + 4, (37, 11))],
+                  -1).astype(np.float32)
+    xy[0, :6] = [[np.nan, 1.0], [1.0, np.nan], [np.inf, 0.0], [0.0, -np.inf],
+                 [1e9, -1e9], [-3e7, 2.0]]
+    xy = torch.as_tensor(xy, device=dev)
+    got, gv = tw.remap_xy(img, xy, fill=0.7, clamp=clamp)
+    want, wv = tw.bilinear_sample(img, xy, fill=0.7, clamp=clamp)
+    assert torch.equal(gv, wv) and not bool(gv[0, :6].any())
+    _k4_close(got, want)
+    if not clamp:                        # out of the image: the fill value
+        assert bool((got[~gv] == 0.7).all())
+    else:                                # far out: a border pixel, finite
+        assert bool(torch.isfinite(got[0, 4:6]).all())
+    v = torch.as_tensor(rng.uniform(-3, h + 3, (h + 5, w)).astype(np.float32), device=dev)
+    v[0, 0] = float("nan")
+    v[-1, -1] = 1e9
+    _k4_close(tw.remap_rows(img, v), tw._remap_rows_plain(img, v))
+    u = torch.as_tensor(rng.uniform(-3, w + 3, (h, w + 9)).astype(np.float32), device=dev)
+    u[0, 0] = -float("inf")
+    _k4_close(tw.remap_cols(img, u), tw._remap_cols_plain(img, u))
+
+
+def test_k4_fill_against_clamp(rng, dev):
+    img = _k4_img(rng, dev, (40, 60), 3)
+    xy = torch.as_tensor([[-2.5, 10.0], [30.0, 50.5], [12.25, 7.5]], device=dev)
+    filled, v1 = tw.remap_xy(img, xy, fill=-1.0)
+    clamped, v2 = tw.remap_xy(img, xy, clamp=True)
+    assert torch.equal(v1, v2) and v1.tolist() == [False, False, True]
+    assert bool((filled[:2] == -1.0).all())
+    torch.testing.assert_close(clamped[0], img[10, 0], rtol=0, atol=0)
+    torch.testing.assert_close(clamped[1], img[39, 30], rtol=0, atol=0)
+    torch.testing.assert_close(filled[2], clamped[2], rtol=0, atol=0)
+
+
+def test_k4_wrappers_reject_bad_inputs(rng, dev):
+    img = _k4_img(rng, dev, (30, 40), 3)
+    field = torch.zeros(30, 40, device=dev)
+    with pytest.raises(ValueError):
+        tw.warp_spherical(img.double(), 100.0)
+    with pytest.raises(ValueError):
+        tw.warp_perspective(img.transpose(0, 1), H_TILT, (30, 40))     # not contiguous
+    with pytest.raises(ValueError):
+        tw.remap_rows(img, field.t().contiguous())                  # wrong shape
+    with pytest.raises(ValueError):
+        tw.remap_cols(img, field.double())
+    with pytest.raises(ValueError):
+        tw.remap_xy(img, torch.zeros(5, 2, 2, device=dev)[:, 0])       # not contiguous
+    with pytest.raises(ValueError):
+        tw.remap_xy(img, torch.zeros(5, 2))                          # field on the CPU
