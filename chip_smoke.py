@@ -9,34 +9,48 @@ Phases (any failure raises, so the exit code is non-zero):
    name and power limit as nvidia-smi reports them;
 2. build   — compiles csrc/*.cu with nvcc for sm_90a into build/;
 3. kernels — each kernel against its plain PyTorch twin on the same card,
-   at its main path's shapes, with the tolerances below; both timed with
-   CUDA events, the median of 20 runs of 10 back-to-back calls after
-   warm-up. K1-K3 at the VO path's (KITTI 1240x376, 546 tracks); K4
-   (csrc/warp.cu) at the panorama's: the spherical pre-warp of a
-   640x480x3 view, a 1240x376x3 view onto its canvas, the row / column
-   remaps at 376x1240 and the descriptor patches, atol 1e-5, <= 3 flips of
-   the validity mask; K3 and K1 again at the panorama alignment's shapes
-   (two pre-warped 640x480 views, their detection levels, LK from the
-   ZNCC matches), with the VO shapes' gates;
+   at its main path's shapes, with the tolerances below. Each is timed
+   three ways: device time per call from torch.profiler over 100
+   back-to-back calls (the plain version over 10), host-inclusive time
+   with CUDA events (median of 20 runs of 10 calls after warm-up), and,
+   where one PyTorch call computes the same function (K2 and K4's
+   border-clamped remaps: grid_sample, bilinear, border padding, its grid
+   normalised inside the timed call), that call's device time; beside
+   them the bound of the call's work (dr3_tpu_torch/tools/bounds.py).
+   K1-K3 at the VO path's shapes (KITTI 1240x376, 546 tracks, the whole
+   4-level pyramid in one K1 launch); K4 (csrc/warp.cu) at the
+   panorama's: the spherical pre-warp of a 640x480x3 view, a 1240x376x3
+   view onto its canvas, the row / column remaps at 376x1240 and the
+   descriptor patches, atol 1e-5, <= 3 flips of the validity mask; K3 and
+   K1 again at the panorama alignment's shapes (two pre-warped 640x480
+   views, their detection levels, LK from the ZNCC matches), with the VO
+   shapes' gates;
 4. slice   — MonoVO(Pinhole.kitti(), Config(loop_closure=False)) over 40
    rendered frames with known ground truth: reaches GENERAL, >= 3
    keyframes with window BA, > 100 map points, Sim(3) ATE under 5% of the
-   path, every kernel launched by the run (counters zeroed just before);
-   then the same 320x240 sequence on the card and on the CPU (plain
-   twins) must take the same stage/keyframe decisions;
+   path, every kernel launched by the run (counters zeroed just before),
+   K1 once per tracked frame for the whole pyramid and once for the
+   template alignment; then 6 more frames under torch.profiler (device
+   time per launch in a steady window); then the same 320x240 sequence on
+   the card and on the CPU (plain twins) must take the same stage/keyframe
+   decisions;
 5. panorama — Panorama.process on rendered views of a textured sphere
    (exact ground truth): (a) TRANSLATE, 8 RGB views of 640x480, f 600,
    feather 40, 0.35 rad apart: every pair's shift within 1 px of f * yaw,
    the canvas width within 12 px, the canvas correlating > 0.95 with the
    texture; (b) HOMOGRAPHY, 4 RGB views of 1240x376 with KITTI intrinsics,
    0.15 rad apart: each chained homography takes the truth's image of the
-   view's corners back within 3 px of the corners; K1, K3 and both K4
-   kernels launched (counters zeroed just before); then a 3-view 320x240
+   view's corners back within 3 px of the corners; K1 (once per pair), K3
+   and both K4 kernels launched (counters zeroed just before); one more
+   TRANSLATE panorama under torch.profiler; then a 3-view 320x240
    panorama on the card and on the CPU with the same RANSAC draws: same
    canvas shape, homography corners within 0.1 px, mean |d canvas| < 2e-3.
 
-The last two lines of stdout are a JSON object of per-kernel results and
-``{"ok": true, "device": {...}}``. Imports nothing of JAX or dr3_tpu.
+The kernel table (launches per general frame or per panorama, device us,
+bound, share of bound, library us) is printed before the last three
+lines of stdout: a JSON object of per-kernel results, the card's name and
+power limit, and ``{"ok": true, "device": {...}}``. Imports nothing of
+JAX or dr3_tpu.
 """
 
 from __future__ import annotations
@@ -60,6 +74,8 @@ from dr3_tpu_torch.ops import _native, corners, lk, pyramid, warp  # noqa: E402
 from dr3_tpu_torch.pipelines.panorama import Panorama, PanType  # noqa: E402
 from dr3_tpu_torch.pipelines.stitch import find_correspondences  # noqa: E402
 from dr3_tpu_torch.pipelines.vo import MonoVO, Stage  # noqa: E402
+from dr3_tpu_torch.tools import bounds  # noqa: E402
+from dr3_tpu_torch.tools.cudatime import cuda_ms, device_ms, per_launch, profile  # noqa: E402
 from dr3_tpu_torch.utils import synth  # noqa: E402
 from dr3_tpu_torch.utils.config import Config  # noqa: E402
 from dr3_tpu_torch.utils.synth import lateral_path, make_textures, render_scene  # noqa: E402
@@ -67,6 +83,7 @@ from dr3_tpu_torch.viz.ate import ate_rmse  # noqa: E402
 
 SEED = 0
 N_FRAMES = 40
+N_PROFILED = 6       # frames after the slice's 40, run under torch.profiler
 STEP = 0.08          # scene units per frame (near plane at depth 6)
 # panorama (a): bench.py's configuration (8 views, f 600, feather 40)
 PAN_N, PAN_W, PAN_H, PAN_F, PAN_YAW, PAN_FEATHER = 8, 640, 480, 600.0, 0.35, 40
@@ -76,46 +93,73 @@ PAN_N, PAN_W, PAN_H, PAN_F, PAN_YAW, PAN_FEATHER = 8, 640, 480, 600.0, 0.35, 40
 # corners within 2.69 px over 4 texture seeds (PERF.md), gated at 3 px
 HOMO_N, HOMO_YAW = 4, 0.15
 DEV = "cuda"
+# the kernels' names in a profile: entry of the `kernels` line -> __global__
+KERNEL_NAMES = {"lk_pyramid": "lk_pyramid_kernel", "lk_align": "lk_align_kernel",
+                "sample_patches": "sample_patches_kernel",
+                "corner_response": "corner_response_kernel", "remap": "remap_kernel",
+                "warp": "warp_kernel"}
 
 
 def log(*a):
     print(*a, flush=True)
 
 
-def cuda_ms(fn, reps=20, n=10, warm=3) -> float:
-    """Device time per call of fn() in ms: the median over ``reps`` runs,
-    after warm-up, of CUDA events around n calls launched back to back,
-    divided by n. For a kernel whose device time is below its wrapper's
-    host time this measures the host launch rate, which is what the main
-    path pays too."""
-    for _ in range(warm):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    per_call = []
-    for _ in range(reps):
-        start.record()
-        for _ in range(n):
-            fn()
-        end.record()
-        end.synchronize()
-        per_call.append(start.elapsed_time(end) / n)
-    return statistics.median(per_call)
+def measure(kernel, plain, library=None, bound=None, n_plain=10, **extra) -> dict:
+    """A kernel row: device ms per call of the kernel's wrapper, of its
+    plain version and of the one PyTorch call that computes the same
+    function (torch.profiler, all device work of the call; ``library``
+    None where there is none), the kernel's and the plain version's
+    host-inclusive ms (CUDA events, median of 20 runs of 10 calls), and
+    the bound of the call's work (tools/bounds.py)."""
+    ms, how = device_ms(kernel, n=100)
+    plain_ms, _ = device_ms(plain, n=n_plain)
+    row = dict(ms=ms, plain_ms=plain_ms, library_ms=None, host_ms=cuda_ms(kernel),
+               plain_host_ms=cuda_ms(plain, reps=5 if n_plain < 100 else 20),
+               timed_by=how, **(bound or {}), **extra)
+    if library is not None:
+        row["library_ms"] = device_ms(library, n=100)[0]
+    row["share"] = row["bound_ms"] / ms if bound else None
+    return row
 
 
-def plain_pyramid_track(pyr_prev, pyr_next, pts, valid, half, iters, eps, init=None):
-    """track_pyramid's coarse-to-fine loop over the plain level function."""
-    n_levels = len(pyr_prev)
-    guess = (pts if init is None else init) / (2.0 ** (n_levels - 1))
-    ok_all = torch.ones_like(valid)
-    for lvl in range(n_levels - 1, -1, -1):
-        pos, ok, err = lk._track_level_plain(pyr_prev[lvl], pyr_next[lvl],
-                                             pts / (2.0 ** lvl), guess, half,
-                                             iters, eps)
-        ok_all = ok_all & ok
-        guess = pos * 2.0 if lvl > 0 else pos
-    return guess, ok_all & valid & (err < 40.0)
+def log_row(name, r, card):
+    lib = "none" if r["library_ms"] is None else f"{1e3 * r['library_ms']:.2f} us"
+    steps = f", {r['steps']} GN steps" if "steps" in r else ""
+    log(f"[time] {name}: device {1e3 * r['ms']:.2f} us ({r['timed_by']}), bound "
+        f"{1e3 * r['bound_ms']:.3f} us by {r['bound_by']} ({r['bytes']} B, {r['ops']} ops"
+        f"{steps}), "
+        f"share {100 * r['share']:.1f}%, library {lib}; plain device {1e3 * r['plain_ms']:.2f} "
+        f"us; host-inclusive kernel {r['host_ms']:.4f} ms, plain {r['plain_host_ms']:.4f} ms "
+        f"({card})")
+
+
+def grid_sample_patches(img, centers, half):
+    """The library yardstick of K2: the [N, W, W] border-clamped bilinear
+    patches by one grid_sample call, its grid normalised inside."""
+    h, w = img.shape
+    scale = img.new_tensor([2.0 / (w - 1), 2.0 / (h - 1)])
+    base = lk._patch_coords(img.new_zeros(1, 2), half)[0] * scale - 1.0    # [W, W, 2]
+    W = 2 * half + 1
+    n = centers.shape[0]
+
+    def call():
+        grid = torch.addcmul(base, centers[:, None, None, :], scale)
+        out = torch.nn.functional.grid_sample(img[None, None], grid.view(1, n, W * W, 2),
+                                              mode="bilinear", padding_mode="border",
+                                              align_corners=True)
+        return out.view(n, W, W)
+    return call
+
+
+def grid_sample_xy(img, make_grid):
+    """The library yardstick of a border-clamped remap: one grid_sample
+    call over the grid make_grid() normalises, [Ho, Wo] out."""
+    def call():
+        grid = make_grid()
+        out = torch.nn.functional.grid_sample(img[None, None], grid[None], mode="bilinear",
+                                              padding_mode="border", align_corners=True)
+        return out[0, 0]
+    return call
 
 
 def k3_check(tag, img, threshold) -> float:
@@ -142,8 +186,8 @@ def k1_track_check(tag, pyr0, pyr1, pts, valid, init, cfg, min_ok=0.8):
     half = cfg.klt_window // 2
     res = lk.track_pyramid(pyr0, pyr1, pts, valid, init=init, half_window=half,
                            iters=cfg.klt_iters, eps=cfg.klt_eps)
-    pos_p, ok_p = plain_pyramid_track(pyr0, pyr1, pts, valid, half,
-                                      cfg.klt_iters, cfg.klt_eps, init=init)
+    pos_p, ok_p, _ = lk._track_pyramid_plain(pyr0, pyr1, pts, valid, init, half,
+                                             cfg.klt_iters, cfg.klt_eps, 40.0)
     both = res.ok & ok_p
     nv = int(valid.sum())
     if not (int(res.ok.sum()) >= min_ok * nv and int(ok_p.sum()) >= min_ok * nv):
@@ -201,10 +245,11 @@ def phase_kernels(card, frames):
     # K3 on each detection level: exact corner set, scores rtol 2e-3 atol 0.05
     errs = [k3_check(f"level {lvl}", pyr0[lvl], cfg.fast_threshold)
             for lvl in range(cfg.n_pyr_levels)]
-    out["corner_response"] = dict(
-        max_abs_err=max(errs),
-        ms=cuda_ms(lambda: corners.corner_response(pyr0[0], cfg.fast_threshold)),
-        plain_ms=cuda_ms(lambda: corners._corner_response_plain(pyr0[0], cfg.fast_threshold)))
+    out["corner_response"] = measure(
+        lambda: corners.corner_response(pyr0[0], cfg.fast_threshold),
+        lambda: corners._corner_response_plain(pyr0[0], cfg.fast_threshold),
+        bound=bounds.k3_corners(pyr0[0]), max_abs_err=max(errs),
+        shape=f"{tuple(pyr0[0].shape)}")
 
     # tracks: the detected grid corners of frame 0 (546 slots at KITTI size)
     feats = corners.detect_features(pyr0[:cfg.n_pyr_levels], cfg.cell_size,
@@ -214,17 +259,26 @@ def phase_kernels(card, frames):
     half = cfg.klt_window // 2
     log(f"[K1] {n} track slots, {int(valid.sum())} corners, W={2 * half + 1}")
 
-    # K1 (a) over the 4-level pyramid: >= 80% ok in both, |d pos| < 1e-2
+    # K1 over the 4-level pyramid in one launch: >= 80% ok in both, |d pos| < 1e-2
     err_a, res = k1_track_check("track_pyramid", pyr0, pyr1, pts, valid, None, cfg)
+    bound = bounds.k1_pyramid(pyr0, pyr1, pts, None, half, cfg.klt_iters, cfg.klt_eps)
+    log(f"[K1] GN steps run (the plain version's freeze flags): {bound['steps']} over {n} "
+        f"tracks x {len(pyr0)} levels ({bound['steps'] / n / len(pyr0):.2f} per track and "
+        f"level of {cfg.klt_iters})")
+    out["lk_pyramid"] = measure(
+        lambda: lk.track_pyramid(pyr0, pyr1, pts, valid, half_window=half,
+                                 iters=cfg.klt_iters, eps=cfg.klt_eps),
+        lambda: lk._track_pyramid_plain(pyr0, pyr1, pts, valid, None, half, cfg.klt_iters,
+                                        cfg.klt_eps, 40.0),
+        bound=bound,
+        max_abs_err=err_a, shape=f"{n} tracks, {len(pyr0)} levels of {tuple(pyr0[0].shape)}")
     guess = pts.clone()
-    out["lk_track_level"] = dict(
-        max_abs_err=err_a,
-        ms=cuda_ms(lambda: lk.track_level(pyr0[0], pyr1[0], pts, guess, half,
-                                          cfg.klt_iters, cfg.klt_eps)),
-        plain_ms=cuda_ms(lambda: lk._track_level_plain(pyr0[0], pyr1[0], pts, guess,
-                                                       half, cfg.klt_iters, cfg.klt_eps)))
+    lvl0, _ = device_ms(lambda: lk.track_level(pyr0[0], pyr1[0], pts, guess, half,
+                                               cfg.klt_iters, cfg.klt_eps))
+    log(f"[time] track_level (level 0 alone, the same kernel): device {1e3 * lvl0:.2f} us "
+        f"({card})")
 
-    # K1 (b) template alignment: W=9, 8 iterations, same tolerance
+    # K1 template alignment: W=9, 8 iterations, same tolerance
     thalf = (cfg.feature_align_patch - 1) // 2
     templates = lk._sample_patches_plain(pyr0[0], pts, thalf).contiguous()
     start = res.pos.contiguous()
@@ -243,14 +297,16 @@ def phase_kernels(card, frames):
         raise AssertionError(f"K1 align: max |d pos| {err_b}")
     log(f"[K1] align_to_templates: ok {int(ra.ok.sum())} (plain {int(rp.ok.sum())}) "
         f"of {nv}; max |d pos| {err_b:.3g}")
-    out["lk_align_templates"] = dict(
-        max_abs_err=err_b,
-        ms=cuda_ms(lambda: lk.align_to_templates(pyr1[0], templates, start, ok_in,
-                                                 iters=cfg.feature_align_iters)),
-        plain_ms=cuda_ms(lambda: lk._align_to_templates_plain(
-            pyr1[0], templates, start, ok_in, cfg.feature_align_iters, 1e-2, 30.0, 4.0)))
+    out["lk_align"] = measure(
+        lambda: lk.align_to_templates(pyr1[0], templates, start, ok_in,
+                                      iters=cfg.feature_align_iters),
+        lambda: lk._align_to_templates_plain(pyr1[0], templates, start, ok_in,
+                                             cfg.feature_align_iters, 1e-2, 30.0, 4.0),
+        bound=bounds.k1_align(pyr1[0], templates, start, cfg.feature_align_iters, 1e-2),
+        max_abs_err=err_b, shape=f"{n} templates of {2 * thalf + 1}x{2 * thalf + 1}")
 
-    # K2 on the level-2 image: W=5 and W=7 (sparse alignment), atol 1e-5
+    # K2 on the level-2 image: W=5 and W=7 (sparse alignment), atol 1e-5;
+    # the library yardstick agrees to grid_sample's normalisation round-off
     img2 = pyr1[cfg.align_level]
     centers = (pts / 4.0 + 0.37).contiguous()
     errs = []
@@ -261,21 +317,27 @@ def phase_kernels(card, frames):
         errs.append(float((got - want).abs().max()))
         log(f"[K2] W={2 * h + 1} on {tuple(img2.shape)}: max |d| {errs[-1]:.3g}")
     h5 = cfg.align_half_patch
-    out["sample_patches"] = dict(
-        max_abs_err=max(errs),
-        ms=cuda_ms(lambda: lk.sample_patches(img2, centers, h5)),
-        plain_ms=cuda_ms(lambda: lk._sample_patches_plain(img2, centers, h5)))
+    library = grid_sample_patches(img2, centers, h5)
+    log(f"[K2] grid_sample yardstick: max |d| "
+        f"{float((library() - lk.sample_patches(img2, centers, h5)).abs().max()):.3g}")
+    out["sample_patches"] = measure(
+        lambda: lk.sample_patches(img2, centers, h5),
+        lambda: lk._sample_patches_plain(img2, centers, h5), library=library,
+        bound=bounds.k2_sample(img2, centers, h5), n_plain=100, max_abs_err=max(errs),
+        shape=f"{n} patches of {2 * h5 + 1}x{2 * h5 + 1} on {tuple(img2.shape)}")
     for name, r in out.items():
-        log(f"[time] {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms "
-            f"({card})")
+        log_row(name, r, card)
     return out
 
 
-def phase_slice(card, frames, gt):
+def phase_slice(card, frames, gt, profiled):
+    """The VO slice over ``frames`` (counted, timed, gated), then the
+    ``profiled`` frames that follow under torch.profiler: device time per
+    launch of each kernel in that steady window."""
     cfg = Config(loop_closure=False)
     vo = MonoVO(Pinhole.kitti(), cfg, device="cuda")
-    counters = (lk.track_level, lk.align_to_templates, lk.sample_patches,
-                corners.corner_response)
+    counters = (lk.track_pyramid, lk.track_level, lk.align_to_templates,
+                lk.sample_patches, corners.corner_response)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for c in counters:
@@ -312,11 +374,21 @@ def phase_slice(card, frames, gt):
         raise AssertionError(f"keyframes {vo.kf_count}, window BA {vo.n_window_ba}")
     if not int(vo.map.n) > 100:
         raise AssertionError(f"map points {int(vo.map.n)}")
-    if min(launches.values()) <= 0:
+    # K1 once per tracked frame (every stage but "first") for the whole
+    # pyramid, and once more for the template alignment
+    n_tracked = sum(st != "first" for st in stages)
+    if min(v for k, v in launches.items() if k != "track_level") <= 0:
         raise AssertionError(f"a kernel of the path never launched: {launches}")
-    k1 = launches["track_level"] + launches["align_to_templates"]
-    if k1 < 5 * n_general:
-        raise AssertionError(f"K1 launched {k1} times for {n_general} general frames")
+    if (launches["track_pyramid"], launches["track_level"]) != (n_tracked, 0):
+        raise AssertionError(f"K1's pyramid launched {launches['track_pyramid']} times "
+                             f"(and track_level {launches['track_level']}) for "
+                             f"{n_tracked} tracked frames")
+    if launches["align_to_templates"] != n_tracked:
+        raise AssertionError(f"K1's alignment launched {launches['align_to_templates']} "
+                             f"times for {n_tracked} tracked frames")
+    log(f"[slice] K1: one pyramid and one alignment launch per tracked frame "
+        f"({n_tracked}); launches per general frame: "
+        + ", ".join(f"{k} {v / n_general:.3f}" for k, v in launches.items()))
     est = vo.positions()
     if not np.isfinite(est).all():
         raise AssertionError("non-finite trajectory")
@@ -328,7 +400,12 @@ def phase_slice(card, frames, gt):
         f"({100 * a.rmse / length:.2f}%)")
     if not a.rmse < 0.05 * length:
         raise AssertionError(f"ATE {a.rmse} >= 5% of {length}")
-    return launches
+
+    window = per_launch(profile(lambda: [vo.process(f) for f in profiled]), KERNEL_NAMES)
+    log(f"[slice] device time per launch over {len(profiled)} more frames under "
+        f"torch.profiler: " + ", ".join(f"{k} {us:.2f} us x {c}" for k, (c, us) in window.items())
+        + f" ({card})")
+    return launches, n_general, window
 
 
 def phase_cpu_reference():
@@ -456,28 +533,60 @@ def phase_k4_kernels(card, cases):
     errs["remap"].append(k4_check(f"remap_xy {tuple(coords.shape[:-1])} on "
                                   f"{tuple(pgray.shape)}", got, want, gv, wv))
 
-    times = {
-        "remap_rows": (lambda: warp.remap_rows(gray, v),
-                       lambda: warp._remap_rows_plain(gray, v)),
-        "remap_cols": (lambda: warp.remap_cols(gray, u),
-                       lambda: warp._remap_cols_plain(gray, u)),
-        "remap_xy": (lambda: warp.remap_xy(pgray, coords, clamp=True),
-                     lambda: warp.bilinear_sample(pgray, coords, clamp=True)),
-        "warp_spherical": (lambda: warp.warp_spherical(view, PAN_F),
-                           lambda: warp._warp_field(view, warp._SPHERICAL, PAN_F)),
-        "warp_perspective": (lambda: warp.warp_perspective(kview, M, out_hw),
-                             lambda: warp._warp_perspective_plain(kview, Minv, out_hw, 0.0)),
+    # the library yardstick of each border-clamped form: one grid_sample
+    # over the field normalised to [-1, 1] inside the timed call
+    sx, sy = 2.0 / (w - 1), 2.0 / (h - 1)
+    gxn, gyn = gx * sx - 1.0, gy * sy - 1.0
+    ph, pw = pgray.shape
+    pscale = torch.tensor([2.0 / (pw - 1), 2.0 / (ph - 1)], device=dev)
+    neg_one = torch.full((2,), -1.0, device=dev)
+    pflat = coords.view(-1, 16, 2)
+    library = {
+        "remap_rows": grid_sample_xy(gray, lambda: torch.stack((gxn, v * sy - 1.0), -1)),
+        "remap_cols": grid_sample_xy(gray, lambda: torch.stack((u * sx - 1.0, gyn), -1)),
+        "remap_xy": grid_sample_xy(pgray, lambda: torch.addcmul(neg_one, pflat, pscale)),
     }
-    ms = {}
-    for name, (kern, plain) in times.items():
-        ms[name] = (cuda_ms(kern), cuda_ms(plain))
-        log(f"[time] {name}: kernel {ms[name][0]:.4f} ms, plain {ms[name][1]:.4f} ms ({card})")
-    return {
-        "remap": dict(max_abs_err=max(errs["remap"]), ms=ms["remap_xy"][0],
-                      plain_ms=ms["remap_xy"][1]),
-        "warp": dict(max_abs_err=max(errs["warp"]), ms=ms["warp_perspective"][0],
-                     plain_ms=ms["warp_perspective"][1]),
+    for name, want in (("remap_rows", warp._remap_rows_plain(gray, v)),
+                       ("remap_cols", warp._remap_cols_plain(gray, u)),
+                       ("remap_xy", warp.bilinear_sample(pgray, coords, clamp=True)[0])):
+        log(f"[K4] {name} grid_sample yardstick: max |d| "
+            f"{float((library[name]().reshape(want.shape) - want).abs().max()):.3g}")
+    sph_u, sph_v = warp.spherical_warp_field(view.shape[0], view.shape[1], PAN_F, device=dev)
+    per_xy = warp.apply_homography(torch.as_tensor(Minv, device=dev),
+                                   warp.output_grid(*out_hw, device=dev))
+    rows = {
+        "remap_rows": measure(lambda: warp.remap_rows(gray, v),
+                              lambda: warp._remap_rows_plain(gray, v),
+                              library=library["remap_rows"],
+                              bound=bounds.k4_remap(gray, gx, v, 4 * v.numel(), False),
+                              shape=f"{tuple(gray.shape)}"),
+        "remap_cols": measure(lambda: warp.remap_cols(gray, u),
+                              lambda: warp._remap_cols_plain(gray, u),
+                              library=library["remap_cols"],
+                              bound=bounds.k4_remap(gray, u, gy, 4 * u.numel(), False),
+                              shape=f"{tuple(gray.shape)}"),
+        "remap_xy": measure(lambda: warp.remap_xy(pgray, coords, clamp=True),
+                            lambda: warp.bilinear_sample(pgray, coords, clamp=True),
+                            library=library["remap_xy"],
+                            bound=bounds.k4_remap(pgray, coords[..., 0], coords[..., 1],
+                                                  4 * coords.numel(), True),
+                            shape=f"{tuple(coords.shape[:-1])} on {tuple(pgray.shape)}"),
+        "warp_spherical": measure(lambda: warp.warp_spherical(view, PAN_F),
+                                  lambda: warp._warp_field(view, warp._SPHERICAL, PAN_F),
+                                  bound=bounds.k4_warp(view, sph_u, sph_v, False,
+                                                       bounds.OPS_SPHERICAL),
+                                  shape=f"{tuple(view.shape)}"),
+        "warp_perspective": measure(lambda: warp.warp_perspective(kview, M, out_hw),
+                                    lambda: warp._warp_perspective_plain(kview, Minv, out_hw,
+                                                                         0.0),
+                                    bound=bounds.k4_warp(kview, per_xy[..., 0], per_xy[..., 1],
+                                                         True, bounds.OPS_HOMOGRAPHY),
+                                    shape=f"{tuple(kview.shape)} -> {out_hw}"),
     }
+    for name, r in rows.items():
+        log_row(name, r, card)
+    return {"remap": dict(rows["remap_xy"], max_abs_err=max(errs["remap"])),
+            "warp": dict(rows["warp_perspective"], max_abs_err=max(errs["warp"]))}, rows
 
 
 def phase_align_kernels(card, cases):
@@ -499,18 +608,23 @@ def phase_align_kernels(card, cases):
     p1, p2, w = find_correspondences(grays[0], grays[1], cfg, refine_lk=False)
     k1, _ = k1_track_check(f"track_pyramid from the matches, {len(pyr_l)} levels",
                            pyr_l, pyr_r, p1, w > 0, p2, cfg, min_ok=0.6)
-    ms = {"corner_response": (
-              cuda_ms(lambda: corners.corner_response(pyr_l[0], cfg.fast_threshold)),
-              cuda_ms(lambda: corners._corner_response_plain(pyr_l[0], cfg.fast_threshold))),
-          "track_level": (
-              cuda_ms(lambda: lk.track_level(pyr_l[0], pyr_r[0], p1, p2, half,
-                                             cfg.klt_iters, cfg.klt_eps)),
-              cuda_ms(lambda: lk._track_level_plain(pyr_l[0], pyr_r[0], p1, p2, half,
-                                                    cfg.klt_iters, cfg.klt_eps)))}
-    for name, (kern, plain) in ms.items():
-        log(f"[time] {name} at {tuple(pyr_l[0].shape)} ({p1.shape[0]} track slots): "
-            f"kernel {kern:.4f} ms, plain {plain:.4f} ms ({card})")
-    return {"corner_response": max(k3), "lk_track_level": k1}
+    valid = w > 0
+    rows = {
+        "corner_response (panorama)": measure(
+            lambda: corners.corner_response(pyr_l[0], cfg.fast_threshold),
+            lambda: corners._corner_response_plain(pyr_l[0], cfg.fast_threshold),
+            bound=bounds.k3_corners(pyr_l[0]), shape=f"{tuple(pyr_l[0].shape)}"),
+        "lk_pyramid (panorama)": measure(
+            lambda: lk.track_pyramid(pyr_l, pyr_r, p1, valid, init=p2, half_window=half,
+                                     iters=cfg.klt_iters, eps=cfg.klt_eps),
+            lambda: lk._track_pyramid_plain(pyr_l, pyr_r, p1, valid, p2, half, cfg.klt_iters,
+                                            cfg.klt_eps, 40.0),
+            bound=bounds.k1_pyramid(pyr_l, pyr_r, p1, p2, half, cfg.klt_iters, cfg.klt_eps),
+            shape=f"{p1.shape[0]} tracks, {len(pyr_l)} levels of {tuple(pyr_l[0].shape)}"),
+    }
+    for name, r in rows.items():
+        log_row(name, r, card)
+    return {"corner_response": max(k3), "lk_pyramid": k1}, rows
 
 
 K4_COUNTERS = {"remap": (warp.remap_xy, warp.remap_rows, warp.remap_cols),
@@ -576,8 +690,8 @@ def check_homography(pan, case):
 
 
 def phase_panorama(card, cases):
-    counters = (lk.track_level, corners.corner_response) + K4_COUNTERS["remap"] + \
-        K4_COUNTERS["warp"]
+    counters = (lk.track_pyramid, lk.track_level, corners.corner_response) + \
+        K4_COUNTERS["remap"] + K4_COUNTERS["warp"]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for c in counters:
@@ -612,14 +726,24 @@ def phase_panorama(card, cases):
         f"{tuple(out_h.shape)} in {1e3 * wall_h:.1f} ms (first run of its shapes) ({card})")
     check_homography(pan_h, hc)
     log(f"[panorama] launches {launches}; peak memory {peak / 2**20:.1f} MiB ({card})")
-    groups = {"K1": launches["track_level"], "K3": launches["corner_response"],
+    groups = {"K1": launches["track_pyramid"] + launches["track_level"],
+              "K3": launches["corner_response"],
               "K4 remap": sum(launches[c.__name__] for c in K4_COUNTERS["remap"]),
               "K4 warp": sum(launches[c.__name__] for c in K4_COUNTERS["warp"])}
     if min(groups.values()) <= 0:
         raise AssertionError(f"a kernel of the panorama path never launched: {groups}")
+    # K1 once per aligned pair for the whole pyramid: 4 TRANSLATE runs, 1 HOMOGRAPHY
+    pairs = (1 + reps) * (PAN_N - 1) + (HOMO_N - 1)
+    if (launches["track_pyramid"], launches["track_level"]) != (pairs, 0):
+        raise AssertionError(f"K1 launched {launches['track_pyramid']} times (track_level "
+                             f"{launches['track_level']}) for {pairs} pairs")
     if not torch.isfinite(out).all() or not torch.isfinite(out_h).all():
         raise AssertionError("non-finite canvas")
-    return groups
+    window = per_launch(profile(lambda: pan.process(tc["views"])), KERNEL_NAMES)
+    log(f"[panorama] device time per launch over one more TRANSLATE panorama under "
+        f"torch.profiler: " + ", ".join(f"{k} {us:.2f} us x {c}" for k, (c, us) in window.items())
+        + f" ({card})")
+    return groups, launches, 2 + reps, window
 
 
 def phase_cpu_panorama():
@@ -652,50 +776,91 @@ def phase_cpu_panorama():
         raise AssertionError(f"card vs CPU panorama: corners {gap} px, canvas {diff}")
 
 
+def print_table(rows, per, in_path, card):
+    """The kernel table: launches on its path's run per general frame (VO)
+    or per panorama (K4); device us per launch at the row's shape (100
+    launches alone), its bound and share, the library call's; device us
+    per launch in the path's profiled window (all its shapes)."""
+    log(f"[table] kernel | launches per frame or panorama | device us | bound us (by) | "
+        f"share | library us | plain device us | device us in the path ({card})")
+    for name, r in rows.items():
+        lib = "none" if r["library_ms"] is None else f"{1e3 * r['library_ms']:.2f}"
+        seen = in_path.get(name)
+        seen = "not in the path" if seen is None else f"{seen[1]:.2f} (x{seen[0]})"
+        log(f"[table] {name} ({r['shape']}) | {per.get(name, 'not on a counted path')} | "
+            f"{1e3 * r['ms']:.2f} | {1e3 * r['bound_ms']:.3f} ({r['bound_by']}) | "
+            f"{100 * r['share']:.1f}% | {lib} | {1e3 * r['plain_ms']:.2f} | {seen}")
+
+
 def main():
     t_start = time.perf_counter()
     card = phase_device()
     phase_build()
     cam = Pinhole.kitti()
     t0 = time.perf_counter()
-    frames, gt = render(cam, N_FRAMES, STEP, SEED, 2000)
+    frames, gt = render(cam, N_FRAMES + N_PROFILED, STEP, SEED, 2000)
     log(f"[setup] rendered {len(frames)} frames {frames[0].shape} in "
         f"{time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     pano_cases = render_panorama_cases()
     log(f"[setup] rendered the panorama views in {time.perf_counter() - t0:.1f} s")
     results = phase_kernels(card, frames)
-    results.update(phase_k4_kernels(card, pano_cases))
-    for name, err in phase_align_kernels(card, pano_cases).items():
+    k4_results, k4_rows = phase_k4_kernels(card, pano_cases)
+    results.update(k4_results)
+    align_errs, pano_rows = phase_align_kernels(card, pano_cases)
+    for name, err in align_errs.items():
         results[name]["max_abs_err"] = max(results[name]["max_abs_err"], err)
-    launches = phase_slice(card, frames, gt)
+    launches, n_general, slice_window = phase_slice(card, frames[:N_FRAMES], gt[:N_FRAMES],
+                                                    frames[N_FRAMES:])
     phase_cpu_reference()
-    pano_launches = phase_panorama(card, pano_cases)
+    pano_launches, pano_wrappers, n_panoramas, pano_window = phase_panorama(card, pano_cases)
     phase_cpu_panorama()
 
     # dr3_remap and dr3_warp each replace both TPU warp kernels: the
     # Catmull-Smith passes K4a and K4b compose into one direct sampler
     k4 = "dr3_tpu/ops/pallas/warp_pallas.py:83,158"
+    counts = {"corner_response": launches["corner_response"],
+              "lk_pyramid": launches["track_pyramid"] + launches["track_level"],
+              "lk_align": launches["align_to_templates"],
+              "sample_patches": launches["sample_patches"],
+              "remap": pano_launches["K4 remap"], "warp": pano_launches["K4 warp"]}
+    per = {name: f"{counts[name] / n_general:.3f} per general frame" for name in
+           ("corner_response", "lk_pyramid", "lk_align", "sample_patches")}
+    for name, counter in (("lk_pyramid (panorama)", "track_pyramid"),
+                          ("corner_response (panorama)", "corner_response"),
+                          *[(c.__name__, c.__name__) for c in K4_COUNTERS["remap"]],
+                          *[(c.__name__, c.__name__) for c in K4_COUNTERS["warp"]]):
+        per[name] = f"{pano_wrappers[counter] / n_panoramas:.2f} per panorama"
+    # the profiled windows' kernels (names as in KERNEL_NAMES); the panorama's
+    # warp kernel runs both warp_spherical and warp_perspective
+    in_path = {name: slice_window.get(name) for name in
+               ("lk_pyramid", "lk_align", "sample_patches", "corner_response")}
+    in_path.update({"lk_pyramid (panorama)": pano_window.get("lk_pyramid"),
+                    "corner_response (panorama)": pano_window.get("corner_response"),
+                    "remap_xy": pano_window.get("remap"),
+                    "warp_spherical": pano_window.get("warp"),
+                    "warp_perspective": pano_window.get("warp")})
+    print_table({**{k: results[k] for k in ("lk_pyramid", "lk_align", "sample_patches",
+                                            "corner_response")}, **pano_rows, **k4_rows},
+                per, in_path, card)
     meta = {
         "corner_response": ("dr3_tpu_torch/csrc/detect.cu",
-                            "dr3_tpu/ops/pallas/detect_pallas.py:54", "corner_response"),
-        "lk_track_level": ("dr3_tpu_torch/csrc/lk.cu",
-                           "dr3_tpu/ops/pallas/lk_pallas.py:117", "track_level"),
-        "lk_align_templates": ("dr3_tpu_torch/csrc/lk.cu",
-                               "dr3_tpu/ops/pallas/lk_pallas.py:117", "align_to_templates"),
+                            "dr3_tpu/ops/pallas/detect_pallas.py:54"),
+        "lk_pyramid": ("dr3_tpu_torch/csrc/lk.cu", "dr3_tpu/ops/pallas/lk_pallas.py:117"),
+        "lk_align": ("dr3_tpu_torch/csrc/lk.cu", "dr3_tpu/ops/pallas/lk_pallas.py:117"),
         "sample_patches": ("dr3_tpu_torch/csrc/sample.cu",
-                           "dr3_tpu/ops/pallas/lk_pallas.py:338", "sample_patches"),
-        "remap": ("dr3_tpu_torch/csrc/warp.cu", k4, "K4 remap"),
-        "warp": ("dr3_tpu_torch/csrc/warp.cu", k4, "K4 warp"),
+                           "dr3_tpu/ops/pallas/lk_pallas.py:338"),
+        "remap": ("dr3_tpu_torch/csrc/warp.cu", k4),
+        "warp": ("dr3_tpu_torch/csrc/warp.cu", k4),
     }
-    launches.update(pano_launches)
     kernels = []
-    for name, (src, replaces, counter) in meta.items():
+    for name, (src, replaces) in meta.items():
         r = results[name]
-        kernels.append({"name": name, "route": "cuda", "source": src,
-                        "replaces": replaces, "launches": launches[counter],
-                        "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-                        "plain_ms": r["plain_ms"]})
+        kernels.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
+                        "launches": counts[name], "max_abs_err": r["max_abs_err"],
+                        "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                        "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+                        "host_ms": r["host_ms"], "plain_host_ms": r["plain_host_ms"]})
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

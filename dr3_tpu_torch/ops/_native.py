@@ -2,10 +2,11 @@
 
 The sources compile with nvcc for ``sm_90a`` into one shared library with a
 plain C interface, loaded with ``ctypes``; nothing includes PyTorch's
-headers, so a build takes seconds. The library is built on first use into
-``build/`` at the repository root, named by a hash of the sources, and
-reused while the sources are unchanged. Nothing is built or imported when
-this module is imported: the CPU tests import every module of the port.
+headers, so a build takes seconds: one nvcc per source, all started
+together, then one link. The library is built on first use into ``build/``
+at the repository root, named by a hash of the sources and flags, and
+reused while they are unchanged. Nothing is built or imported when this
+module is imported: the CPU tests import every module of the port.
 
 Each entry point launches on the given stream and returns
 ``cudaGetLastError()``; :func:`call` raises on a non-zero code.
@@ -26,16 +27,16 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 # C signatures of csrc/*.cu's extern "C" entry points; every one returns int
 SIGNATURES = {
-    "dr3_lk_track": [_P, _I, _I, _P, _I, _I, _P, _P, _I, _I, _I, _F, _F,
-                     _P, _P, _P, _P],
+    "dr3_lk_pyramid": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F,
+                       _P, _P, _P, _P],
     "dr3_lk_align": [_P, _I, _I, _P, _P, _P, _I, _I, _I, _F, _F, _F,
                      _P, _P, _P, _P],
     "dr3_sample_patches": [_P, _I, _I, _P, _I, _I, _P, _P],
@@ -45,7 +46,7 @@ SIGNATURES = {
 }
 
 _lib = None
-build_info: dict = {}
+build_info: dict = {}     # path, seconds, cached, ptxas log
 
 
 def _nvcc() -> str:
@@ -60,17 +61,13 @@ def _nvcc() -> str:
                        "built with the CUDA toolkit on the machine with the card")
 
 
-def _sources():
-    return sorted(CSRC.glob("*.cu")), sorted(CSRC.glob("*.cuh"))
-
-
 def build() -> Path:
     """Compile csrc/*.cu into build/libdr3_kernels-<hash>.so if that file
     does not exist yet; returns its path. Records the compile time and
     ptxas' register/shared-memory report in ``build_info``."""
-    cu, cuh = _sources()
+    cu = sorted(CSRC.glob("*.cu"))
     digest = hashlib.sha256()
-    for f in cu + cuh:
+    for f in cu + sorted(CSRC.glob("*.cuh")):
         digest.update(f.name.encode())
         digest.update(f.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
@@ -79,20 +76,27 @@ def build() -> Path:
         build_info.update(path=str(out), seconds=0.0, cached=True, log="")
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp,
-           *[str(f) for f in cu]]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-                           f"{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, out)   # atomic: a concurrent builder never sees half a file
-    build_info.update(path=str(out), seconds=seconds, cached=False,
-                      log=proc.stdout + proc.stderr)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [os.path.join(tmp, f"{f.stem}.o") for f in cu]
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", str(f), "-o", o],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for f, o in zip(cu, objs)]
+        logs = [p.communicate()[0] for p in procs]
+        failed = [(f, p.returncode, log) for f, p, log in zip(cu, procs, logs) if p.returncode]
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(
+                f"{f} ({code}):\n{log}" for f, code, log in failed))
+        so = os.path.join(tmp, "lib.so")
+        link = subprocess.run([nvcc, *ARCH, "-shared", "-o", so, *objs],
+                              capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n"
+                               f"{link.stdout}\n{link.stderr}")
+        os.replace(so, out)   # atomic: a concurrent build never sees half a file
+    build_info.update(path=str(out), seconds=time.perf_counter() - t0, cached=False,
+                      log="".join(logs))
     return out
 
 

@@ -24,7 +24,7 @@ from __future__ import annotations
 
 import dataclasses
 import enum
-from typing import List, Optional, Sequence
+from typing import List, Sequence, Union
 
 import numpy as np
 import torch
@@ -34,6 +34,7 @@ from dr3_tpu_torch.ops import blend
 from dr3_tpu_torch.ops.warp import warp_perspective, warp_spherical
 from dr3_tpu_torch.pipelines.stitch import Stitch, _inverse_normalized, _warp_corners_np
 from dr3_tpu_torch.utils.config import Config
+from dr3_tpu_torch.utils.device import resolve as resolve_device
 from dr3_tpu_torch.utils.timing import Monitor
 
 
@@ -45,15 +46,19 @@ class PanType(enum.Enum):
 @dataclasses.dataclass
 class Panorama:
     """reconstruct::Panorama equivalent (panorama.hpp:12-105). ``device``:
-    where the images are processed (default: the first image's; numpy
-    images go to the CPU)."""
+    where the images are processed, numpy arrays and tensors alike
+    (default: the card; ``device="cpu"`` runs the kernels' plain
+    versions)."""
 
     focal_length: float = 0.0
     pan_type: PanType = PanType.HOMOGRAPHY
     feathering_width: int = 20
     cfg: Config = dataclasses.field(default_factory=Config)
     monitor: Monitor = dataclasses.field(default_factory=Monitor)
-    device: Optional[str] = None
+    device: Union[str, torch.device, None] = None
+
+    def __post_init__(self):
+        self.device = resolve_device(self.device, "Panorama")
 
     def process_dir(self, dir_name: str) -> torch.Tensor:
         return self.process(load_image_dir(dir_name))

@@ -40,6 +40,7 @@ from dr3_tpu_torch.pipelines.twoview_init import initialize_two_view
 from dr3_tpu_torch.state import (KeyframeState, MapState, TrackState,
                                  compact_map, remap_point_ids)
 from dr3_tpu_torch.utils.config import Config
+from dr3_tpu_torch.utils.device import resolve as resolve_device
 from dr3_tpu_torch.utils.stats import nanmedian
 from dr3_tpu_torch.utils.timing import Monitor
 
@@ -382,8 +383,8 @@ class FrameStats(NamedTuple):
 class MonoVO:
     """Monocular VO driver (HandlerMono + SLAM union), per frame.
 
-    ``device``: where every tensor of the state lives (default: the
-    camera's). ``seed`` seeds the ``torch.Generator`` that draws the
+    ``device``: where every tensor of the state lives (default: the card;
+    ``device="cpu"`` runs the kernels' plain versions). ``seed`` seeds the ``torch.Generator`` that draws the
     two-view RANSAC minimal sets."""
 
     def __init__(self, cam: Pinhole, cfg: Optional[Config] = None, seed: int = 0,
@@ -397,7 +398,7 @@ class MonoVO:
             raise NotImplementedError(
                 "mesh-distributed window BA is not ported yet (ROADMAP.md "
                 "Queue 1, item 18 'Distribution')")
-        self.device = torch.device(device) if device is not None else cam.device
+        self.device = resolve_device(device, "MonoVO")
         self.cam = cam.to(self.device)
         n_cols = -(-cam.width // self.cfg.cell_size)
         n_rows = -(-cam.height // self.cfg.cell_size)

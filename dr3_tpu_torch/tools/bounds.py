@@ -1,0 +1,202 @@
+"""The least time an H100 could take for the work of each kernel call, its
+bound: the larger of the bytes it must move over the memory rate and the
+operations it must do over the float32 rate (NVIDIA's H100 SXM data sheet:
+3.35 TB/s, 67 TFLOP/s float32 outside the tensor cores).
+
+Bytes count each input read once and each output written once. Where a
+kernel reads windows of an image, the image bytes are the pixels the
+windows of this call touch, each once (the union of their boxes, clamped
+to the image as the clamped reads are). Operations are the float
+operations the function needs at this call's data, counted per pixel (the
+OPS_* constants below, a fused multiply-add as two) and, for K1, per GN
+step that the tracks of this call run: the eps-freeze makes every later
+step a no-op, so the kernel stops there and so does the count, taken
+from the plain version's freeze flags.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from dr3_tpu_torch.ops import lk
+
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+
+# float operations the work needs
+OPS_SAMPLE = 17           # a bilinear sample placed on its own: 2 coordinate
+                          # adds, 2 floors, 2 fractions, 2 complements, 3 lerps of 3
+# K1: all pixels of a window share its centre's floor and fraction, so a
+# sample is its 3 lerps and the cell costs OPS_CELL once per window
+OPS_CELL = 6              # 2 floors, 2 fractions, 2 complements
+OPS_SHARED_SAMPLE = 9     # 3 lerps of a multiply and a multiply-add
+OPS_LK_TEMPLATE = 5 * OPS_SHARED_SAMPLE + 10   # T and 4 neighbours; 2 differences,
+                                               # 2 halvings; 3 products summed
+OPS_LK_STEP = OPS_SHARED_SAMPLE + 5            # residual, 2 multiply-adds
+OPS_LK_ERR = OPS_SHARED_SAMPLE + 3             # residual, |.|, sum
+OPS_ALIGN_GRAD = 10                            # 2 differences, 2 halvings, 3 products summed
+OPS_LK_SOLVE = OPS_CELL + 13                   # per window and step: the cell, the 2x2
+                                               # solve (2 x 2 products, a difference, a
+                                               # division), the update, |d|^2
+OPS_LK_LEVEL = 2 * OPS_CELL + 12               # per window and level: the template's and
+                                               # the error pass's cells, min eigenvalue
+OPS_CORNER = 215          # per pixel: scale 1, 16 ring differences, the 16
+                          # 10-arc minima of each sign by doubling (pairs,
+                          # fours, eights and a last pair: 2 x 64), their
+                          # maxima (2 x 15) and 3 threshold tests, strict NMS
+                          # 8, central differences 4, 3 products, 8-wide box
+                          # sums as running sums (3 sums, 2 passes, add and
+                          # subtract: 12), min eigenvalue 10
+OPS_REMAP_COORD = 10      # 2 floors, 2 fractions, 2 complements, 4 bound tests
+OPS_REMAP_CHANNEL = 9     # 6 products, 3 sums
+OPS_SPHERICAL = 20        # 2 differences, 2 divisions, 4 sin/cos, 2 products,
+                          # 2 products, 2 divisions, 2 sums, 2 guards
+OPS_HOMOGRAPHY = 15       # 6 products, 6 sums, 2 divisions, 1 guard
+
+
+def bound(n_bytes: float, n_ops: float) -> dict:
+    """{"bound_ms", "bound_by", "bytes", "ops"} of a call's work."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S
+    t_ops = n_ops / F32_OPS_PER_S
+    return {"bound_ms": 1e3 * max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": int(n_bytes), "ops": int(n_ops)}
+
+
+def _index(v: torch.Tensor, n: int) -> torch.Tensor:
+    """Integer pixel indices clamped to [0, n-1], NaN on the border, as
+    common.cuh corner_index and the clamped reads place them."""
+    v = torch.nan_to_num(v.to(torch.float32), nan=-1.0, posinf=float(n), neginf=-1.0)
+    return v.clamp(-1.0, float(n)).floor().clamp(0, n - 1).to(torch.int64)
+
+
+def touched_pixels(h: int, w: int, x0, y0, x1, y1) -> int:
+    """Pixels of an [h, w] image in the union of the boxes [x0, x1] x
+    [y0, y1] (inclusive float corners, floored and clamped to the image)."""
+    x0, x1 = _index(x0.reshape(-1), w), _index(x1.reshape(-1), w)
+    y0, y1 = _index(y0.reshape(-1), h), _index(y1.reshape(-1), h)
+    stride = w + 1
+    diff = torch.zeros((h + 1) * stride, dtype=torch.int64, device=x0.device)
+    for ys, xs, sign in ((y0, x0, 1), (y0, x1 + 1, -1), (y1 + 1, x0, -1), (y1 + 1, x1 + 1, 1)):
+        diff.index_add_(0, ys * stride + xs, torch.full_like(ys, sign))
+    cover = diff.view(h + 1, stride).cumsum(0).cumsum(1)[:h, :w]
+    return int((cover > 0).sum())
+
+
+def _window_boxes(c: torch.Tensor, lo: int, hi: int):
+    """Boxes [floor(c) - lo, floor(c) + hi] around centres c [N, 2]."""
+    f = torch.floor(c)
+    return f[:, 0] - lo, f[:, 1] - lo, f[:, 0] + hi, f[:, 1] + hi
+
+
+def _span_boxes(a: torch.Tensor, b: torch.Tensor, lo: int, hi: int):
+    """Boxes spanning the windows around a and around b (a GN path)."""
+    fa, fb = torch.floor(a), torch.floor(b)
+    mn, mx = torch.minimum(fa, fb), torch.maximum(fa, fb)
+    return mn[:, 0] - lo, mn[:, 1] - lo, mx[:, 0] + hi, mx[:, 1] + hi
+
+
+def plain_levels(pyr_prev, pyr_next, pts, init, half, iters, eps):
+    """track_pyramid's plain loop, keeping each level's (level, start, end,
+    steps): where that level's GN steps began and ended, and how many the
+    tracks ran in all."""
+    n_levels = len(pyr_prev)
+    guess = (pts if init is None else init) / (2.0 ** (n_levels - 1))
+    out = []
+    for lvl in range(n_levels - 1, -1, -1):
+        pos, _, _, steps = lk._track_level_plain(pyr_prev[lvl], pyr_next[lvl],
+                                                 pts / (2.0 ** lvl), guess, half, iters,
+                                                 eps, with_steps=True)
+        out.append((lvl, guess, pos, int(steps.sum())))
+        guess = pos * 2.0 if lvl > 0 else pos
+    return out
+
+
+def k1_pyramid(pyr_prev, pyr_next, pts, init, half, iters, eps) -> dict:
+    """One dr3_lk_pyramid call (track_pyramid with valid and max_err):
+    each level's template region (window + 1 px for the gradients + 1 for
+    the bilinear corner) in prev, the region the GN path's windows cover in
+    next, pts / init / valid in, pos / ok / err out; operations at the GN
+    steps the tracks run (``bound["steps"]``)."""
+    n = pts.shape[0]
+    P = (2 * half + 1) ** 2
+    n_bytes = n * (8 + 1 + (0 if init is None else 8)) + n * (8 + 1 + 4)
+    steps = 0
+    for lvl, start, end, lvl_steps in plain_levels(pyr_prev, pyr_next, pts, init, half,
+                                                   iters, eps):
+        hp, wp = pyr_prev[lvl].shape
+        h, w = pyr_next[lvl].shape
+        n_bytes += 4 * touched_pixels(hp, wp, *_window_boxes(pts / (2.0 ** lvl),
+                                                             half + 1, half + 2))
+        n_bytes += 4 * touched_pixels(h, w, *_span_boxes(start, end, half, half + 1))
+        steps += lvl_steps
+    n_ops = (len(pyr_prev) * n * (P * (OPS_LK_TEMPLATE + OPS_LK_ERR) + OPS_LK_LEVEL)
+             + steps * (P * OPS_LK_STEP + OPS_LK_SOLVE))
+    return dict(bound(n_bytes, n_ops), steps=steps)
+
+
+def k1_align(img, templates, start, iters, eps) -> dict:
+    """One dr3_lk_align call: the templates, the region the GN path's
+    windows cover, pos / valid in, pos / ok / err out; operations at the GN
+    steps the tracks run (``bound["steps"]``)."""
+    n, W, _ = templates.shape
+    half = (W - 1) // 2
+    h, w = img.shape
+    end, *_, steps = lk._solve_2x2_steps(
+        lambda p: lk._sample_patches_plain(img, p, half), templates,
+        lk._gradient(templates, -1), lk._gradient(templates, -2), start, iters, eps)
+    steps = int(steps.sum())
+    n_bytes = templates.numel() * 4 + n * (8 + 1) + n * (8 + 1 + 4)
+    n_bytes += 4 * touched_pixels(h, w, *_span_boxes(start, end, half, half + 1))
+    n_ops = (n * (W * W * (OPS_ALIGN_GRAD + OPS_LK_ERR) + OPS_LK_LEVEL)
+             + steps * (W * W * OPS_LK_STEP + OPS_LK_SOLVE))
+    return dict(bound(n_bytes, n_ops), steps=steps)
+
+
+def k2_sample(img, centers, half: int) -> dict:
+    """One dr3_sample_patches call: the pixels its patches touch, the
+    centres in, the [N, W, W] patches out."""
+    n = centers.shape[0]
+    P = (2 * half + 1) ** 2
+    h, w = img.shape
+    n_bytes = 4 * touched_pixels(h, w, *_window_boxes(centers, half, half + 1))
+    n_bytes += n * 8 + n * P * 4
+    return bound(n_bytes, n * P * OPS_SAMPLE)
+
+
+def k3_corners(img) -> dict:
+    """One dr3_corner_response call: the image in, the score map out."""
+    h, w = img.shape
+    return bound(2 * 4 * h * w, h * w * OPS_CORNER)
+
+
+def _gather_bytes(img, x, y, valid=None) -> int:
+    """Bytes of the source pixels bilinear samples at (x, y) read: the 2x2
+    corners of each sample (of the valid ones, if given), all channels."""
+    if valid is not None:
+        x, y = x[valid], y[valid]
+    h, w = img.shape[:2]
+    c = 1 if img.dim() == 2 else img.shape[2]
+    x0, y0 = torch.floor(x), torch.floor(y)
+    return 4 * c * touched_pixels(h, w, x0, y0, x0 + 1, y0 + 1)
+
+
+def k4_remap(img, x, y, field_bytes: int, with_valid: bool) -> dict:
+    """One dr3_remap call sampling img at (x, y): the pixels it reads, the
+    field in, the samples (and validity) out."""
+    n = x.numel()
+    c = 1 if img.dim() == 2 else img.shape[2]
+    n_bytes = _gather_bytes(img, x, y) + field_bytes + n * 4 * c + (n if with_valid else 0)
+    return bound(n_bytes, n * (OPS_REMAP_COORD + c * OPS_REMAP_CHANNEL))
+
+
+def k4_warp(img, x, y, with_valid: bool, ops_coord: int) -> dict:
+    """One dr3_warp call whose output pixels sample img at (x, y): the
+    pixels the in-image samples read, the warped image (and validity) out;
+    ``ops_coord`` the operations of one output pixel's source coordinate."""
+    h, w = img.shape[:2]
+    n = x.numel()
+    c = 1 if img.dim() == 2 else img.shape[2]
+    inside = (x >= 0) & (y >= 0) & (x <= w - 1) & (y <= h - 1)
+    n_bytes = _gather_bytes(img, x, y, inside) + n * 4 * c + (n if with_valid else 0)
+    return bound(n_bytes, n * (ops_coord + OPS_REMAP_COORD + c * OPS_REMAP_CHANNEL))

@@ -112,12 +112,33 @@ def test_extract_patches_matches(rng, half):
 
 def test_wrappers_take_plain_twin_only_on_cpu():
     """On a CPU tensor no kernel launches; the counters stay put."""
-    before = (tlk.track_level.launches, tlk.sample_patches.launches,
-              tlk.align_to_templates.launches)
+    counters = (tlk.track_pyramid, tlk.track_level, tlk.sample_patches,
+                tlk.align_to_templates)
+    before = [c.launches for c in counters]
     img = torch.rand(32, 32)
     pts = torch.full((3, 2), 16.0)
+    valid = torch.ones(3, dtype=torch.bool)
+    tlk.track_pyramid(tpyr(img, 2), tpyr(img, 2), pts, valid, half_window=3, iters=2)
     tlk.track_level(img, img, pts, pts, 3, 2, 1e-3)
     tlk.sample_patches(img, pts, 2)
-    tlk.align_to_templates(img, torch.rand(3, 5, 5), pts, torch.ones(3, dtype=torch.bool))
-    assert (tlk.track_level.launches, tlk.sample_patches.launches,
-            tlk.align_to_templates.launches) == before
+    tlk.align_to_templates(img, torch.rand(3, 5, 5), pts, valid)
+    assert [c.launches for c in counters] == before
+
+
+@pytest.mark.parametrize("half,fits", [(1, True), (7, True), (15, True), (59, True),
+                                       (60, False), (0, False), (-3, False)])
+def test_check_window_is_the_shared_memory_limit(half, fits):
+    """K1 keeps 3 W^2 + (W + 5)^2 float32 per track in shared memory
+    (template, gradients, staged window), at most 227 KB (232,448 bytes) per
+    block on an H100: W = 119 (half 59) fits, W = 121 does not. Pure
+    arithmetic: the same check runs before every launch."""
+    W = 2 * half + 1
+    assert tlk.MAX_HALF_WINDOW == 59
+    assert tlk.track_smem_bytes(59) == 4 * (3 * 119 ** 2 + 124 ** 2) == 231_436
+    assert tlk.track_smem_bytes(59) <= tlk.SMEM_PER_BLOCK < tlk.track_smem_bytes(60)
+    assert fits == (half >= 1 and 4 * (3 * W * W + (W + 5) ** 2) <= tlk.SMEM_PER_BLOCK)
+    if fits:
+        tlk._check_window(half)
+    else:
+        with pytest.raises(ValueError, match="outside \\[1, 59\\]"):
+            tlk._check_window(half)

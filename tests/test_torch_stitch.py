@@ -94,7 +94,7 @@ def test_align_pair_matches(rng, jax_draws, translate_only):
     img = scene(rng)
     right = ndimage.shift(img, (-6.0, -40.0), order=1, mode="nearest").astype(np.float32)
     aj = JStitch(JConfig(), translate_only=translate_only).align_pair(img, right)
-    at = Stitch(Config(), translate_only=translate_only).align_pair(img, right)
+    at = Stitch(Config(), translate_only=translate_only, device="cpu").align_pair(img, right)
     assert jax_draws.calls == 1
     assert at.n_inliers >= 12 and abs(at.n_inliers - aj.n_inliers) <= 2
     assert abs(at.n_matches - aj.n_matches) <= 2
@@ -107,7 +107,7 @@ def test_stitch_process_matches(rng, jax_draws):
     img = scene(rng)
     right = ndimage.shift(img, (-0.4, -50.3), order=1, mode="nearest").astype(np.float32)
     out_j, Hj = JStitch(JConfig()).process(img, right)
-    out_t, Ht = Stitch(Config()).process(img, right)
+    out_t, Ht = Stitch(Config(), device="cpu").process(img, right)
     assert tuple(out_t.shape) == out_j.shape
     assert _corner_gap(Ht, Hj) < H_CORNER_PX
     np.testing.assert_allclose(nn(out_t), out_j, rtol=0, atol=CANVAS_ATOL)
@@ -118,7 +118,7 @@ def test_panorama_three_views_matches(rng, jax_draws):
     views = [wide[:, 0:320], wide[:, 110:430], wide[:, 220:540]]
     pj = JPanorama(feathering_width=20, transfer_uint8=False)
     out_j = pj.process(views)
-    pt = Panorama(feathering_width=20)
+    pt = Panorama(feathering_width=20, device="cpu")
     out_t = pt.process(views)
     assert jax_draws.calls == 2
     for Ht, Hj in zip(pt.homographies_, pj.homographies_):
@@ -146,7 +146,7 @@ def test_panorama_translate_spherical_matches(jax_draws):
              for k in range(3)]
     pj = JPanorama(focal_length=f, pan_type=JPanType.TRANSLATE, transfer_uint8=False)
     out_j = pj.process(views)
-    pt = Panorama(focal_length=f, pan_type=PanType.TRANSLATE)
+    pt = Panorama(focal_length=f, pan_type=PanType.TRANSLATE, device="cpu")
     out_t = pt.process(views)
     assert tuple(out_t.shape) == out_j.shape and pt.origin_ == pj.origin_
     for k, (Ht, Hj) in enumerate(zip(pt.homographies_, pj.homographies_)):

@@ -126,7 +126,7 @@ def test_step_parity_from_carried_state(jax_run):
 def test_whole_run_parity(jax_run, monkeypatch):
     sampler = _JaxMinimalSets(seed=0)
     monkeypatch.setattr(transac, "sample_minimal_sets", sampler)
-    vo = TMonoVO(_port_cam(), Config(**CFG))
+    vo = TMonoVO(_port_cam(), Config(**CFG), device="cpu")
     for f in jax_run["frames"]:
         vo.process(f)
     jvo = jax_run["vo"]
@@ -214,6 +214,6 @@ def test_referenced_points_and_compaction(jax_run):
 
 def test_unported_options_raise():
     with pytest.raises(NotImplementedError, match="loop closure"):
-        TMonoVO(_port_cam(), Config())
+        TMonoVO(_port_cam(), Config(), device="cpu")
     with pytest.raises(NotImplementedError, match="Distribution"):
-        TMonoVO(_port_cam(), Config(loop_closure=False), mesh=object())
+        TMonoVO(_port_cam(), Config(loop_closure=False), mesh=object(), device="cpu")
