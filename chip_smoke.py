@@ -18,7 +18,12 @@ Phases (any failure raises, so the exit code is non-zero):
    normalised inside the timed call), that call's device time; beside
    them the bound of the call's work (dr3_tpu_torch/tools/bounds.py).
    K1-K3 at the VO path's shapes (KITTI 1240x376, 546 tracks, the whole
-   4-level pyramid in one K1 launch); K4 (csrc/warp.cu) at the
+   4-level pyramid in one K1 launch, K3 on one level and on the three
+   detection levels in one launch); sparse alignment in one launch
+   (csrc/sparse_align.cu, K2's sampler in its LM loop) against the plain
+   loop at 546 slots on level 2 of frames 0 and 1-3, 12 steps: pose within
+   1e-4, cost0 rtol 1e-5, n_used equal, two launches bit-equal, and the
+   accept decisions of both (read off the cost after 0..12 steps); K4 (csrc/warp.cu) at the
    panorama's: the spherical pre-warp of a 640x480x3 view, a 1240x376x3
    view onto its canvas, the row / column remaps at 376x1240 and the
    descriptor patches, atol 1e-5, <= 3 flips of the validity mask; K3 and
@@ -30,7 +35,8 @@ Phases (any failure raises, so the exit code is non-zero):
    keyframes with window BA, > 100 map points, Sim(3) ATE under 5% of the
    path, every kernel launched by the run (counters zeroed just before),
    K1 once per tracked frame for the whole pyramid and once for the
-   template alignment; then 6 more frames under torch.profiler (device
+   template alignment, sparse alignment once per general frame and K2
+   alone only for the template captures; then 6 more frames under torch.profiler (device
    time per launch in a steady window); then the same 320x240 sequence on
    the card and on the CPU (plain twins) must take the same stage/keyframe
    decisions;
@@ -68,9 +74,11 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
+from dr3_tpu_torch.geometry.lie import SE3  # noqa: E402
 from dr3_tpu_torch.io.image import to_gray  # noqa: E402
 from dr3_tpu_torch.models.camera import Pinhole  # noqa: E402
 from dr3_tpu_torch.ops import _native, corners, lk, pyramid, warp  # noqa: E402
+from dr3_tpu_torch.ops import sparse_align as sa  # noqa: E402
 from dr3_tpu_torch.pipelines.panorama import Panorama, PanType  # noqa: E402
 from dr3_tpu_torch.pipelines.stitch import find_correspondences  # noqa: E402
 from dr3_tpu_torch.pipelines.vo import MonoVO, Stage  # noqa: E402
@@ -96,6 +104,7 @@ DEV = "cuda"
 # the kernels' names in a profile: entry of the `kernels` line -> __global__
 KERNEL_NAMES = {"lk_pyramid": "lk_pyramid_kernel", "lk_align": "lk_align_kernel",
                 "sample_patches": "sample_patches_kernel",
+                "sparse_align": "sparse_align_kernel",
                 "corner_response": "corner_response_kernel", "remap": "remap_kernel",
                 "warp": "warp_kernel"}
 
@@ -125,6 +134,9 @@ def measure(kernel, plain, library=None, bound=None, n_plain=10, **extra) -> dic
 def log_row(name, r, card):
     lib = "none" if r["library_ms"] is None else f"{1e3 * r['library_ms']:.2f} us"
     steps = f", {r['steps']} GN steps" if "steps" in r else ""
+    if "survivors" in r:
+        steps = (f", {r['candidates']} candidates, {r['scored']} scored, {r['survivors']} "
+                 f"survivors of {r['pixels']} pixels")
     log(f"[time] {name}: device {1e3 * r['ms']:.2f} us ({r['timed_by']}), bound "
         f"{1e3 * r['bound_ms']:.3f} us by {r['bound_by']} ({r['bytes']} B, {r['ops']} ops"
         f"{steps}), "
@@ -175,6 +187,63 @@ def k3_check(tag, img, threshold) -> float:
     err = float((got - want).abs().max())
     log(f"[K3] {tag} {tuple(img.shape)}: {int((got > 0).sum())} corners, "
         f"max |d score| {err:.3g}")
+    return err
+
+
+def k3_pyramid_check(tag, levels, threshold) -> float:
+    """K3's one launch over ``levels``: each level bit-equal to its own
+    launch, hence within k3_check's gates of the plain version."""
+    got = corners.corner_response_pyramid(levels, threshold)
+    torch.cuda.synchronize()
+    err = 0.0
+    for lvl, (img, g) in enumerate(zip(levels, got)):
+        if not torch.equal(g, corners.corner_response(img, threshold)):
+            raise AssertionError(f"K3 {tag}: level {lvl} differs from its own launch")
+        want = corners._corner_response_plain(img, threshold)
+        if not torch.equal(g > 0, want > 0):
+            raise AssertionError(f"K3 {tag}: level {lvl} corner sets differ")
+        torch.testing.assert_close(g, want, rtol=2e-3, atol=0.05)
+        err = max(err, float((g - want).abs().max()))
+    log(f"[K3] {tag}: {len(levels)} levels in one launch, each equal to its own launch; "
+        f"max |d score| {err:.3g}")
+    return err
+
+
+def align_decisions(fn, iters) -> str:
+    """The accept decisions of an LM run, read off its public result: step k
+    was accepted ("A") iff the cost after k steps is below the cost after
+    k - 1, else refused ("r")."""
+    costs = [float(fn(k).cost) for k in range(iters + 1)]
+    return "".join("A" if b < a else "r" for a, b in zip(costs, costs[1:]))
+
+
+def sparse_align_check(tag, args, iters) -> float:
+    """dr3_sparse_align against the plain loop on the same inputs: n_used
+    equal, cost0 rtol 1e-5, pose within 1e-4, two launches bit-equal;
+    returns max |d pose|. Prints both runs' accept decisions."""
+    got = sa.sparse_align(*args, iters=iters)
+    again = sa.sparse_align(*args, iters=iters)
+    want = sa._sparse_align_plain(*args, iters)
+    torch.cuda.synchronize()
+    for a, b in zip((got.T.wxyz, got.T.t, got.cost0, got.cost, got.n_used),
+                    (again.T.wxyz, again.T.t, again.cost0, again.cost, again.n_used)):
+        if not torch.equal(a, b):
+            raise AssertionError(f"sparse_align {tag}: two launches differ")
+    if int(got.n_used) != int(want.n_used):
+        raise AssertionError(f"sparse_align {tag}: n_used {int(got.n_used)} vs "
+                             f"{int(want.n_used)}")
+    torch.testing.assert_close(got.cost0, want.cost0, rtol=1e-5, atol=0.0)
+    err = max(float((got.T.wxyz - want.T.wxyz).abs().max()),
+              float((got.T.t - want.T.t).abs().max()))
+    if not err < 1e-4:
+        raise AssertionError(f"sparse_align {tag}: max |d pose| {err}")
+    dk = align_decisions(lambda k: sa.sparse_align(*args, iters=k), iters)
+    dp = align_decisions(lambda k: sa._sparse_align_plain(*args, k), iters)
+    differ = sum(a != b for a, b in zip(dk, dp))
+    log(f"[K2] sparse_align {tag}: n_used {int(got.n_used)}, cost0 {float(got.cost0):.6f} "
+        f"(plain {float(want.cost0):.6f}), cost {float(got.cost):.6f} (plain "
+        f"{float(want.cost):.6f}), max |d pose| {err:.3g}; decisions kernel {dk} plain {dp}: "
+        f"{differ} of {iters} differ; t {[round(v, 5) for v in got.T.t.tolist()]}")
     return err
 
 
@@ -245,11 +314,25 @@ def phase_kernels(card, frames):
     # K3 on each detection level: exact corner set, scores rtol 2e-3 atol 0.05
     errs = [k3_check(f"level {lvl}", pyr0[lvl], cfg.fast_threshold)
             for lvl in range(cfg.n_pyr_levels)]
+    det = pyr0[:cfg.n_pyr_levels]
+    errs.append(k3_pyramid_check("detection levels", det, cfg.fast_threshold))
+    for lvl, img in enumerate(det):
+        b = bounds.k3_corners([img], cfg.fast_threshold)
+        log(f"[K3] level {lvl}: of {b['pixels']} pixels {b['candidates']} pass the half-ring "
+            f"test ({100 * b['candidates'] / b['pixels']:.2f}%), {b['scored']} have a FAST "
+            f"score ({100 * b['scored'] / b['pixels']:.2f}%), {b['survivors']} survive the NMS "
+            f"({100 * b['survivors'] / b['pixels']:.2f}%); {b['ops'] / b['pixels']:.1f} "
+            f"operations a pixel")
     out["corner_response"] = measure(
         lambda: corners.corner_response(pyr0[0], cfg.fast_threshold),
         lambda: corners._corner_response_plain(pyr0[0], cfg.fast_threshold),
-        bound=bounds.k3_corners(pyr0[0]), max_abs_err=max(errs),
+        bound=bounds.k3_corners(pyr0[:1], cfg.fast_threshold), max_abs_err=max(errs),
         shape=f"{tuple(pyr0[0].shape)}")
+    out["corner_response_pyramid"] = measure(
+        lambda: corners.corner_response_pyramid(det, cfg.fast_threshold),
+        lambda: [corners._corner_response_plain(img, cfg.fast_threshold) for img in det],
+        bound=bounds.k3_corners(det, cfg.fast_threshold), max_abs_err=max(errs),
+        shape=f"{len(det)} levels of {tuple(pyr0[0].shape)}")
 
     # tracks: the detected grid corners of frame 0 (546 slots at KITTI size)
     feats = corners.detect_features(pyr0[:cfg.n_pyr_levels], cfg.cell_size,
@@ -325,6 +408,31 @@ def phase_kernels(card, frames):
         lambda: lk._sample_patches_plain(img2, centers, h5), library=library,
         bound=bounds.k2_sample(img2, centers, h5), n_plain=100, max_abs_err=max(errs),
         shape=f"{n} patches of {2 * h5 + 1}x{2 * h5 + 1} on {tuple(img2.shape)}")
+    # sparse alignment in one launch: frame 0's corners on the scene's planes
+    # (frame 0 stands at the world origin), aligned into frames 1-3 from the
+    # reference pose, as the VO step starts it; level 2, W=5, 12 steps
+    kitti = Pinhole.kitti(device=dev)
+    world = torch.as_tensor(synth.scene_points(kitti, synth.NpSE3.exp(np.zeros(6)),
+                                               pts.cpu().numpy()), device=dev)
+    ident = SE3.identity(device=dev)
+    lvl = cfg.align_level
+
+    def align_args(k):
+        cur = pyramid.build_pyramid(torch.as_tensor(frames[k], device=dev), lvl + 1)[lvl]
+        return (pyr0[lvl], cur, ident, ident, kitti, world, valid, lvl, h5)
+
+    errs = [sparse_align_check(f"frames 0 -> {k}, {n} slots on {tuple(pyr0[lvl].shape)}",
+                               align_args(k), cfg.align_iters) for k in (1, 2, 3)]
+    a1 = align_args(1)
+    final = sa.sparse_align(*a1, iters=cfg.align_iters).T
+    out["sparse_align"] = measure(
+        lambda: sa.sparse_align(*a1, iters=cfg.align_iters),
+        lambda: sa._sparse_align_plain(*a1, cfg.align_iters),
+        bound=bounds.k2_sparse_align(a1[0], a1[1], ident, ident, final, kitti, world, lvl, h5,
+                                     cfg.align_iters),
+        n_plain=3, max_abs_err=max(errs),
+        shape=f"{n} points of {2 * h5 + 1}x{2 * h5 + 1} on {tuple(a1[1].shape)}, "
+              f"{cfg.align_iters} LM steps")
     for name, r in out.items():
         log_row(name, r, card)
     return out
@@ -337,7 +445,8 @@ def phase_slice(card, frames, gt, profiled):
     cfg = Config(loop_closure=False)
     vo = MonoVO(Pinhole.kitti(), cfg, device="cuda")
     counters = (lk.track_pyramid, lk.track_level, lk.align_to_templates,
-                lk.sample_patches, corners.corner_response)
+                lk.sample_patches, sa.sparse_align, corners.corner_response_pyramid,
+                corners.corner_response)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for c in counters:
@@ -377,8 +486,20 @@ def phase_slice(card, frames, gt, profiled):
     # K1 once per tracked frame (every stage but "first") for the whole
     # pyramid, and once more for the template alignment
     n_tracked = sum(st != "first" for st in stages)
-    if min(v for k, v in launches.items() if k != "track_level") <= 0:
+    one_level = ("track_level", "corner_response")      # the path runs their pyramid forms
+    if min(v for k, v in launches.items() if k not in one_level) <= 0:
         raise AssertionError(f"a kernel of the path never launched: {launches}")
+    # one sparse-alignment launch per general step, with K2's sampler inside:
+    # sample_patches alone is left with the template captures of the keyframes
+    n_aligned = stages.count("general") + stages.count("relocalize")
+    if launches["sparse_align"] != n_aligned:
+        raise AssertionError(f"sparse alignment launched {launches['sparse_align']} times "
+                             f"for {n_aligned} general steps")
+    if not launches["sample_patches"] <= 2 * vo.kf_count + 1:
+        raise AssertionError(f"K2 alone launched {launches['sample_patches']} times for "
+                             f"{vo.kf_count} keyframes")
+    if launches["corner_response"] != 0:
+        raise AssertionError(f"K3 launched per level: {launches}")
     if (launches["track_pyramid"], launches["track_level"]) != (n_tracked, 0):
         raise AssertionError(f"K1's pyramid launched {launches['track_pyramid']} times "
                              f"(and track_level {launches['track_level']}) for "
@@ -603,6 +724,9 @@ def phase_align_kernels(card, cases):
     pyr_l, pyr_r = (pyramid.build_pyramid(g, max(n_levels, cfg.klt_levels)) for g in grays)
     k3 = [k3_check(f"panorama view {k} level {lvl}", pyr[lvl], cfg.fast_threshold)
           for k, pyr in enumerate((pyr_l, pyr_r)) for lvl in range(n_levels)]
+    k3 += [k3_pyramid_check(f"panorama view {k}", pyr[:n_levels], cfg.fast_threshold)
+           for k, pyr in enumerate((pyr_l, pyr_r))]
+    det = pyr_l[:n_levels]
     # about a quarter of the matches leave LK's 40-unit error gate (53 of
     # 70 ok in both on the CPU), so the share gate here is 60%
     p1, p2, w = find_correspondences(grays[0], grays[1], cfg, refine_lk=False)
@@ -613,7 +737,13 @@ def phase_align_kernels(card, cases):
         "corner_response (panorama)": measure(
             lambda: corners.corner_response(pyr_l[0], cfg.fast_threshold),
             lambda: corners._corner_response_plain(pyr_l[0], cfg.fast_threshold),
-            bound=bounds.k3_corners(pyr_l[0]), shape=f"{tuple(pyr_l[0].shape)}"),
+            bound=bounds.k3_corners(pyr_l[:1], cfg.fast_threshold),
+            shape=f"{tuple(pyr_l[0].shape)}"),
+        "corner_response_pyramid (panorama)": measure(
+            lambda: corners.corner_response_pyramid(det, cfg.fast_threshold),
+            lambda: [corners._corner_response_plain(img, cfg.fast_threshold) for img in det],
+            bound=bounds.k3_corners(det, cfg.fast_threshold),
+            shape=f"{n_levels} levels of {tuple(pyr_l[0].shape)}"),
         "lk_pyramid (panorama)": measure(
             lambda: lk.track_pyramid(pyr_l, pyr_r, p1, valid, init=p2, half_window=half,
                                      iters=cfg.klt_iters, eps=cfg.klt_eps),
@@ -690,8 +820,8 @@ def check_homography(pan, case):
 
 
 def phase_panorama(card, cases):
-    counters = (lk.track_pyramid, lk.track_level, corners.corner_response) + \
-        K4_COUNTERS["remap"] + K4_COUNTERS["warp"]
+    counters = (lk.track_pyramid, lk.track_level, corners.corner_response_pyramid,
+                corners.corner_response) + K4_COUNTERS["remap"] + K4_COUNTERS["warp"]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for c in counters:
@@ -727,7 +857,7 @@ def phase_panorama(card, cases):
     check_homography(pan_h, hc)
     log(f"[panorama] launches {launches}; peak memory {peak / 2**20:.1f} MiB ({card})")
     groups = {"K1": launches["track_pyramid"] + launches["track_level"],
-              "K3": launches["corner_response"],
+              "K3": launches["corner_response_pyramid"] + launches["corner_response"],
               "K4 remap": sum(launches[c.__name__] for c in K4_COUNTERS["remap"]),
               "K4 warp": sum(launches[c.__name__] for c in K4_COUNTERS["warp"])}
     if min(groups.values()) <= 0:
@@ -819,37 +949,48 @@ def main():
     # dr3_remap and dr3_warp each replace both TPU warp kernels: the
     # Catmull-Smith passes K4a and K4b compose into one direct sampler
     k4 = "dr3_tpu/ops/pallas/warp_pallas.py:83,158"
-    counts = {"corner_response": launches["corner_response"],
+    counts = {"corner_response": launches["corner_response_pyramid"]
+              + launches["corner_response"],
+              "corner_response_pyramid": launches["corner_response_pyramid"],
               "lk_pyramid": launches["track_pyramid"] + launches["track_level"],
               "lk_align": launches["align_to_templates"],
               "sample_patches": launches["sample_patches"],
+              "sparse_align": launches["sparse_align"],
               "remap": pano_launches["K4 remap"], "warp": pano_launches["K4 warp"]}
-    per = {name: f"{counts[name] / n_general:.3f} per general frame" for name in
-           ("corner_response", "lk_pyramid", "lk_align", "sample_patches")}
+    vo_rows = ("lk_pyramid", "lk_align", "sample_patches", "sparse_align", "corner_response",
+               "corner_response_pyramid")
+    per = {name: f"{counts[name] / n_general:.3f} per general frame" for name in vo_rows}
+    per["corner_response"] = (f"{launches['corner_response'] / n_general:.3f} per general "
+                              f"frame (the path runs the pyramid form)")
     for name, counter in (("lk_pyramid (panorama)", "track_pyramid"),
                           ("corner_response (panorama)", "corner_response"),
+                          ("corner_response_pyramid (panorama)", "corner_response_pyramid"),
                           *[(c.__name__, c.__name__) for c in K4_COUNTERS["remap"]],
                           *[(c.__name__, c.__name__) for c in K4_COUNTERS["warp"]]):
         per[name] = f"{pano_wrappers[counter] / n_panoramas:.2f} per panorama"
     # the profiled windows' kernels (names as in KERNEL_NAMES); the panorama's
     # warp kernel runs both warp_spherical and warp_perspective
-    in_path = {name: slice_window.get(name) for name in
-               ("lk_pyramid", "lk_align", "sample_patches", "corner_response")}
-    in_path.update({"lk_pyramid (panorama)": pano_window.get("lk_pyramid"),
-                    "corner_response (panorama)": pano_window.get("corner_response"),
+    in_path = {name: slice_window.get(name) for name in vo_rows}
+    in_path.update({"corner_response": None,
+                    "corner_response_pyramid": slice_window.get("corner_response"),
+                    "lk_pyramid (panorama)": pano_window.get("lk_pyramid"),
+                    "corner_response_pyramid (panorama)": pano_window.get("corner_response"),
                     "remap_xy": pano_window.get("remap"),
                     "warp_spherical": pano_window.get("warp"),
                     "warp_perspective": pano_window.get("warp")})
-    print_table({**{k: results[k] for k in ("lk_pyramid", "lk_align", "sample_patches",
-                                            "corner_response")}, **pano_rows, **k4_rows},
+    print_table({**{k: results[k] for k in vo_rows}, **pano_rows, **k4_rows},
                 per, in_path, card)
     meta = {
         "corner_response": ("dr3_tpu_torch/csrc/detect.cu",
                             "dr3_tpu/ops/pallas/detect_pallas.py:54"),
+        "corner_response_pyramid": ("dr3_tpu_torch/csrc/detect.cu",
+                                    "dr3_tpu/ops/pallas/detect_pallas.py:54"),
         "lk_pyramid": ("dr3_tpu_torch/csrc/lk.cu", "dr3_tpu/ops/pallas/lk_pallas.py:117"),
         "lk_align": ("dr3_tpu_torch/csrc/lk.cu", "dr3_tpu/ops/pallas/lk_pallas.py:117"),
         "sample_patches": ("dr3_tpu_torch/csrc/sample.cu",
                            "dr3_tpu/ops/pallas/lk_pallas.py:338"),
+        "sparse_align": ("dr3_tpu_torch/csrc/sparse_align.cu",
+                         "dr3_tpu/ops/pallas/lk_pallas.py:338"),
         "remap": ("dr3_tpu_torch/csrc/warp.cu", k4),
         "warp": ("dr3_tpu_torch/csrc/warp.cu", k4),
     }

@@ -20,8 +20,11 @@ __device__ __forceinline__ int corner_index(float f0, int n) {
 
 // Edge-clamped bilinear sample of img [H, W] at (x, y):
 // dr3_tpu/ops/warp.py bilinear_sample(clamp=True), corner for corner.
-__device__ __forceinline__ float sample_clamp(const float* __restrict__ img,
-                                              int H, int W, float x, float y) {
+// kLdg reads img through the read-only path (global memory only); without
+// it img may be a copy staged in shared memory.
+template <bool kLdg>
+__device__ __forceinline__ float sample_clamp_from(const float* img, int H, int W,
+                                                   float x, float y) {
   const float x0 = floorf(x);
   const float y0 = floorf(y);
   const float wx = x - x0;
@@ -32,13 +35,20 @@ __device__ __forceinline__ float sample_clamp(const float* __restrict__ img,
   const int x1c = min(max(xi + 1, 0), W - 1);
   const int y0c = min(max(yi, 0), H - 1);
   const int y1c = min(max(yi + 1, 0), H - 1);
-  const float v00 = __ldg(img + y0c * W + x0c);
-  const float v01 = __ldg(img + y0c * W + x1c);
-  const float v10 = __ldg(img + y1c * W + x0c);
-  const float v11 = __ldg(img + y1c * W + x1c);
+  const float* r0 = img + y0c * W;
+  const float* r1 = img + y1c * W;
+  const float v00 = kLdg ? __ldg(r0 + x0c) : r0[x0c];
+  const float v01 = kLdg ? __ldg(r0 + x1c) : r0[x1c];
+  const float v10 = kLdg ? __ldg(r1 + x0c) : r1[x0c];
+  const float v11 = kLdg ? __ldg(r1 + x1c) : r1[x1c];
   const float top = v00 * (1.0f - wx) + v01 * wx;
   const float bot = v10 * (1.0f - wx) + v11 * wx;
   return top * (1.0f - wy) + bot * wy;
+}
+
+__device__ __forceinline__ float sample_clamp(const float* __restrict__ img,
+                                              int H, int W, float x, float y) {
+  return sample_clamp_from<true>(img, H, W, x, y);
 }
 
 __device__ __forceinline__ float warp_sum(float v) {

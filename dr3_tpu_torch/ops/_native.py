@@ -40,7 +40,9 @@ SIGNATURES = {
     "dr3_lk_align": [_P, _I, _I, _P, _P, _P, _I, _I, _I, _F, _F, _F,
                      _P, _P, _P, _P],
     "dr3_sample_patches": [_P, _I, _I, _P, _I, _I, _P, _P],
-    "dr3_corner_response": [_P, _I, _I, _F, _P, _P],
+    "dr3_sparse_align": [_P, _I, _I, _P, _I, _I, *[_P] * 8, _F, _P, _P, _I, _I, _I,
+                         _P, _P, _P, _P],
+    "dr3_corner_response": [_I, _P, _P, _F, _P, _P],
     "dr3_remap": [_P, _I, _I, _I, _I, _P, _I, _I, _I, _F, _P, _P, _P],
     "dr3_warp": [_P, _I, _I, _I, _I, *[_F] * 9, _I, _I, _I, _F, _P, _P, _P],
 }

@@ -5,16 +5,21 @@ src/utils.cpp:282-321).
 Images are float32 in [0, 1]; FAST/Shi-Tomasi scale by 255 internally so
 thresholds keep the reference's 0-255 units.
 
-:func:`corner_response` is the wrapper of kernel K3 (csrc/detect.cu): for a
-CUDA image it launches the fused FAST + NMS + Shi-Tomasi kernel, for a CPU
-image it runs the plain twin ``where(nms3x3(fast_score_map),
-shi_tomasi_map, 0)`` — the jnp oracle, wrap-around rolls included.
-``corner_response.launches`` counts kernel launches.
+:func:`corner_response_pyramid` and its one-level case
+:func:`corner_response` are the wrappers of kernel K3 (csrc/detect.cu): for
+CUDA images one launch of the fused FAST + NMS + Shi-Tomasi kernel over all
+the levels given, for CPU images the plain twin ``where(nms3x3(
+fast_score_map), shi_tomasi_map, 0)`` per level — the jnp oracle,
+wrap-around rolls included. ``<wrapper>.launches`` counts kernel launches.
+:func:`half_ring_pass_map` and :func:`arc_min_doubling` are the plain forms
+of the kernel's early rejection and of its arc minima, held against
+:func:`fast_score_map` by the CPU tests.
 """
 
 from __future__ import annotations
 
-from typing import List, NamedTuple, Optional
+import ctypes
+from typing import List, NamedTuple, Optional, Sequence
 
 import torch
 
@@ -35,23 +40,64 @@ def _border_mask(h: int, w: int, b: int, device) -> torch.Tensor:
     return (ys >= b) & (ys < h - b) & (xs >= b) & (xs < w - b)
 
 
+def _ring_differences(img: torch.Tensor) -> torch.Tensor:
+    """[16, H, W] ring pixel minus centre in 0-255 units (wrap-around rolls)."""
+    x = img * 255.0
+    ring = torch.stack([torch.roll(x, shifts=(-dy, -dx), dims=(-2, -1))
+                        for dx, dy in FAST_OFFSETS])
+    return ring - x[None]
+
+
+def arc_min_rolled(sign_d: torch.Tensor) -> torch.Tensor:
+    """[16, ...] minimum of each of the 16 contiguous 10-arcs of ring values
+    sign_d [16, ...], one roll per arc element (the oracle's form)."""
+    arc_min = sign_d
+    for k in range(1, FAST_ARC):
+        arc_min = torch.minimum(arc_min, torch.roll(sign_d, -k, dims=0))
+    return arc_min
+
+
+def arc_min_doubling(sign_d: torch.Tensor) -> torch.Tensor:
+    """The same minima by doubling, as kernel K3 takes them: of 2, 4 and 8
+    consecutive ring values, then 8 and the pair after them. ``min`` is
+    exact and associative, so this equals :func:`arc_min_rolled` bit for
+    bit."""
+    m2 = torch.minimum(sign_d, torch.roll(sign_d, -1, dims=0))
+    m4 = torch.minimum(m2, torch.roll(m2, -2, dims=0))
+    m8 = torch.minimum(m4, torch.roll(m4, -4, dims=0))
+    return torch.minimum(m8, torch.roll(m2, -8, dims=0))
+
+
+def half_ring_pass_map(img: torch.Tensor, threshold: float = 20.0) -> torch.Tensor:
+    """Kernel K3's early rejection, [H, W] bool: 5 consecutive (cyclically)
+    of the ring's 8 even positions all brighter than I(p)+t or all darker
+    than I(p)-t. A contiguous arc of 10 on the 16-ring holds 5 consecutive
+    even positions, so every pixel with a FAST score passes; the kernel
+    takes the arc minima of the 16-ring only there."""
+    d = _ring_differences(img)[0::2]
+
+    def run_of_5(ok):
+        run = ok
+        for k in range(1, 5):
+            run = run & torch.roll(ok, -k, dims=0)
+        return run.any(0)
+
+    return run_of_5(d > threshold) | run_of_5(-d > threshold)
+
+
 def fast_score_map(img: torch.Tensor, threshold: float = 20.0) -> torch.Tensor:
     """Dense FAST-10 corner score (reference fast_corner_detect_10 +
     fast_corner_score_10, src/features.cpp:55-73): max over contiguous
     10-arcs brighter (darker) than I(p)+t (I(p)-t) of the arc's min
     |I(k)-I(p)|; 0 for non-corners and the 3-px border. 0-255 units."""
-    x = img * 255.0
-    ring = torch.stack([torch.roll(x, shifts=(-dy, -dx), dims=(-2, -1))
-                        for dx, dy in FAST_OFFSETS])
-    d = ring - x[None]
+    d = _ring_differences(img)
 
     def arc_score(sign_d):
         ok = sign_d > threshold
         all_ok = ok
-        arc_min = sign_d
         for k in range(1, FAST_ARC):
             all_ok = all_ok & torch.roll(ok, -k, dims=0)
-            arc_min = torch.minimum(arc_min, torch.roll(sign_d, -k, dims=0))
+        arc_min = arc_min_rolled(sign_d)
         return torch.amax(torch.where(all_ok, arc_min, torch.zeros_like(arc_min)),
                           dim=0)
 
@@ -116,20 +162,56 @@ def _corner_response_plain(img: torch.Tensor, fast_threshold: float) -> torch.Te
                        torch.zeros_like(st))
 
 
+# the levels one dr3_corner_response launch takes (csrc/detect.cu kMaxLevels)
+MAX_LEVELS = 8
+
+
+def corner_response_pyramid(levels: Sequence[torch.Tensor],
+                            fast_threshold: float) -> List[torch.Tensor]:
+    """Per-level responses [H_l, W_l] of the images ``levels``: Shi-Tomasi
+    score at NMS-surviving FAST corners, zero elsewhere. CUDA images: kernel
+    K3 over all levels in one launch (a tile list over levels); CPU images:
+    the plain version per level."""
+    if not levels[0].is_cuda:
+        return [_corner_response_plain(img, fast_threshold) for img in levels]
+    outs = _launch_response(levels, fast_threshold)
+    corner_response_pyramid.launches += 1
+    return outs
+
+
+corner_response_pyramid.launches = 0
+
+
 def corner_response(img: torch.Tensor, fast_threshold: float) -> torch.Tensor:
-    """Per-level response [H, W]: Shi-Tomasi score at NMS-surviving FAST
-    corners, zero elsewhere (kernel K3 on a CUDA image)."""
+    """One level's response [H, W] (kernel K3 over one level on a CUDA
+    image)."""
     if not img.is_cuda:
         return _corner_response_plain(img, fast_threshold)
-    _native.check(img, "img", torch.float32)
-    h, w = img.shape
-    out = torch.empty((h, w), dtype=torch.float32, device=img.device)
-    _native.call("dr3_corner_response", img, h, w, float(fast_threshold), out)
+    out, = _launch_response([img], fast_threshold)
     corner_response.launches += 1
     return out
 
 
 corner_response.launches = 0
+
+
+def _launch_response(levels: Sequence[torch.Tensor], fast_threshold: float):
+    """One dr3_corner_response launch over ``levels``; returns their outputs."""
+    n = len(levels)
+    if not 1 <= n <= MAX_LEVELS:
+        raise ValueError(f"{n} levels: K3 takes 1 to {MAX_LEVELS} in one launch")
+    dev = levels[0].device
+    for lvl, img in enumerate(levels):
+        _native.check(img, f"levels[{lvl}]", torch.float32, device=dev)
+        if img.dim() != 2:
+            raise ValueError(f"levels[{lvl}]: expected [H, W], got {tuple(img.shape)}")
+    outs = [torch.empty_like(img) for img in levels]
+    imgs_p = (ctypes.c_void_p * n)(*[img.data_ptr() for img in levels])
+    outs_p = (ctypes.c_void_p * n)(*[out.data_ptr() for out in outs])
+    dims = (ctypes.c_int * (2 * n))(*[d for img in levels for d in img.shape])
+    _native.call("dr3_corner_response", n, ctypes.addressof(imgs_p), ctypes.addressof(dims),
+                 float(fast_threshold), ctypes.addressof(outs_p))
+    return outs
 
 
 class GridCorners(NamedTuple):
@@ -161,9 +243,9 @@ def detect_features(pyramid: List[torch.Tensor], cell_size: int = 30,
 
     score0 = torch.zeros((h0, w0), dtype=torch.float32, device=dev)
     level0 = torch.zeros((h0, w0), dtype=torch.int32, device=dev)
-    for lvl, img in enumerate(pyramid):
+    responses = corner_response_pyramid(pyramid, fast_threshold)
+    for lvl, score in enumerate(responses):
         scale = 1 << lvl
-        score = corner_response(img, fast_threshold)
         if lvl > 0:
             score = score.repeat_interleave(scale, 0).repeat_interleave(scale, 1)
             score = score[:h0, :w0]

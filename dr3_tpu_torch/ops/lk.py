@@ -11,7 +11,8 @@ Kernels (csrc/lk.cu, K1; csrc/sample.cu, K2) sit behind four wrappers:
 * :func:`align_to_templates` — refinement against stored [N, W, W]
   templates (K1, ``dr3_lk_align``);
 * :func:`sample_patches` — [N, 2] centres -> [N, W, W] clamp-sampled
-  patches (K2), used by :func:`extract_patches` and sparse alignment.
+  patches (K2), used by :func:`extract_patches`; sparse alignment runs the
+  same sampler inside its own kernel (ops/sparse_align.py).
 
 Each wrapper runs its plain PyTorch twin (``_*_plain``, the jnp semantics
 of dr3_tpu/ops/lk.py) for a CPU tensor; for a CUDA tensor it launches the

@@ -7,10 +7,16 @@ Jacobian chain built from reference-patch gradients (constant across
 iterations). LM with system reuse: the trial evaluation doubles as the
 next iteration's linearisation when the step is accepted.
 
-Patch access goes through kernel K2 (:func:`dr3_tpu_torch.ops.lk.sample_patches`)
-at two widths: W = 2*half+3 once on the reference image (the centre patch
-and both central-difference gradients from one sample), then W = 2*half+1
-every iteration on the current image. There is no cap on W.
+On a CUDA image :func:`sparse_align` is one launch of ``dr3_sparse_align``
+(csrc/sparse_align.cu): the reference patches, every evaluation of the
+normal equations with kernel K2's sampler in its body, the 6x6 solves, the
+pose updates and the accept tests, with poses, intrinsics and results on
+the device throughout. On a CPU image it is :func:`_sparse_align_plain`,
+whose patch access goes through K2's plain version at two widths: W =
+2*half+3 once on the reference image (the centre patch and both
+central-difference gradients from one sample), then W = 2*half+1 every
+iteration on the current image. There is no cap on W or on the image size.
+``sparse_align.launches`` counts kernel launches.
 """
 
 from __future__ import annotations
@@ -22,7 +28,8 @@ import torch
 from dr3_tpu_torch.geometry.lie import SE3, hat
 from dr3_tpu_torch.geometry.linalg import chol_solve_small
 from dr3_tpu_torch.models.camera import Pinhole
-from dr3_tpu_torch.ops.lk import sample_patches
+from dr3_tpu_torch.ops import _native
+from dr3_tpu_torch.ops.lk import _sample_patches_plain
 
 
 class AlignResult(NamedTuple):
@@ -40,9 +47,53 @@ def sparse_align(img_ref: torch.Tensor, img_cur: torch.Tensor,
     """Refine T_init (world->cur) against img_ref patches.
 
     img_ref/img_cur: pyramid images at ``level``; points_w [N, 3] world
-    landmarks visible in the reference frame; valid [N]. Intrinsics are
-    scaled internally to the pyramid level. No host synchronisation.
+    landmarks visible in the reference frame; valid [N] bool. Intrinsics are
+    scaled internally to the pyramid level. No host synchronisation: on a
+    CUDA image one kernel launch, the poses, the camera's intrinsics and
+    the result staying on the device.
     """
+    if not img_cur.is_cuda:
+        return _sparse_align_plain(img_ref, img_cur, T_ref, T_init, cam, points_w,
+                                   valid, level, half_patch, iters)
+    dev = img_cur.device
+    n = points_w.shape[0]
+    if half_patch < 0 or iters < 0 or level < 0:
+        raise ValueError(f"negative half_patch {half_patch}, iters {iters} or level {level}")
+    for name, img in (("img_ref", img_ref), ("img_cur", img_cur)):
+        _native.check(img, name, torch.float32, device=dev)
+        if img.dim() != 2 or img.numel() == 0:
+            raise ValueError(f"{name}: expected a non-empty [H, W], got {tuple(img.shape)}")
+    _native.check(points_w, "points_w", torch.float32, (n, 3), dev)
+    _native.check(valid, "valid", torch.bool, (n,), dev)
+    for name, T in (("T_ref", T_ref), ("T_init", T_init)):
+        _native.check(T.wxyz, f"{name}.wxyz", torch.float32, (4,), dev)
+        _native.check(T.t, f"{name}.t", torch.float32, (3,), dev)
+    intrinsics = (cam.fx, cam.fy, cam.cx, cam.cy)
+    for name, v in zip(("fx", "fy", "cx", "cy"), intrinsics):
+        _native.check(v, f"cam.{name}", torch.float32, (), dev)
+    W = 2 * half_patch + 1
+    out = torch.empty((9,), dtype=torch.float32, device=dev)
+    n_used = torch.empty((), dtype=torch.int64, device=dev)
+    # P_ref, gx, gy where a block's share does not fit its shared memory
+    scratch = torch.empty((3, n, W * W), dtype=torch.float32, device=dev)
+    (hr, wr), (hc, wc) = img_ref.shape, img_cur.shape
+    _native.call("dr3_sparse_align", img_ref, hr, wr, img_cur, hc, wc,
+                 T_ref.wxyz, T_ref.t, T_init.wxyz, T_init.t, *intrinsics,
+                 1.0 / (2.0 ** level), points_w, valid, n, half_patch, iters,
+                 scratch, out, n_used)
+    sparse_align.launches += 1
+    return AlignResult(T=SE3(out[0:4], out[4:7]), cost0=out[7], cost=out[8], n_used=n_used)
+
+
+sparse_align.launches = 0
+
+
+def _sparse_align_plain(img_ref: torch.Tensor, img_cur: torch.Tensor,
+                        T_ref: SE3, T_init: SE3, cam: Pinhole,
+                        points_w: torch.Tensor, valid: torch.Tensor,
+                        level: int, half_patch: int, iters: int) -> AlignResult:
+    """:func:`sparse_align` in plain tensor ops: LM with one normal-equation
+    evaluation per step, patches through K2's plain version."""
     scale = 1.0 / (2.0 ** level)
     fx, fy = cam.fx * scale, cam.fy * scale
     cx_, cy_ = cam.cx * scale, cam.cy * scale
@@ -55,7 +106,7 @@ def sparse_align(img_ref: torch.Tensor, img_cur: torch.Tensor,
 
     xc_ref = T_ref.apply(points_w)
     uv_ref = project(xc_ref)
-    P_big = sample_patches(img_ref, uv_ref.contiguous(), half_patch + 1)
+    P_big = _sample_patches_plain(img_ref, uv_ref, half_patch + 1)
     P_ref = P_big[:, 1:-1, 1:-1]
     gx = (P_big[:, 1:-1, 2:] - P_big[:, 1:-1, :-2]) * 0.5
     gy = (P_big[:, 2:, 1:-1] - P_big[:, :-2, 1:-1]) * 0.5
@@ -72,7 +123,7 @@ def sparse_align(img_ref: torch.Tensor, img_cur: torch.Tensor,
         """(H [6,6], b [6], cost) at pose T."""
         xc = T.apply(points_w)
         uv = project(xc)
-        I = sample_patches(img_cur, uv.contiguous(), half_patch)
+        I = _sample_patches_plain(img_cur, uv, half_patch)
         r = I - P_ref
         wi = w * (xc[..., 2] > 1e-3).to(torch.float32)
         z = xc[..., 2]

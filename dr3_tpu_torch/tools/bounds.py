@@ -8,26 +8,27 @@ kernel reads windows of an image, the image bytes are the pixels the
 windows of this call touch, each once (the union of their boxes, clamped
 to the image as the clamped reads are). Operations are the float
 operations the function needs at this call's data, counted per pixel (the
-OPS_* constants below, a fused multiply-add as two) and, for K1, per GN
-step that the tracks of this call run: the eps-freeze makes every later
-step a no-op, so the kernel stops there and so does the count, taken
-from the plain version's freeze flags.
+OPS_* constants below, a fused multiply-add as two) and, where the work
+depends on the data, at what this call's data needs. K1: per GN step that
+the tracks of this call run: the eps-freeze makes every later step a
+no-op, so the kernel stops there and so does the count, taken from the
+plain version's freeze flags. K3: the half-ring test on every pixel, the
+arc minima where it passes, the NMS where there is a FAST score and the
+Shi-Tomasi box at the NMS survivors, counted on the plain version's maps.
 """
 
 from __future__ import annotations
 
 import torch
 
-from dr3_tpu_torch.ops import lk
+from dr3_tpu_torch.ops import corners, lk
 
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 
 # float operations the work needs
-OPS_SAMPLE = 17           # a bilinear sample placed on its own: 2 coordinate
-                          # adds, 2 floors, 2 fractions, 2 complements, 3 lerps of 3
-# K1: all pixels of a window share its centre's floor and fraction, so a
-# sample is its 3 lerps and the cell costs OPS_CELL once per window
+# all pixels of a window or patch share its centre's floor and fraction, so
+# a sample is its 3 lerps and the cell costs OPS_CELL once per window
 OPS_CELL = 6              # 2 floors, 2 fractions, 2 complements
 OPS_SHARED_SAMPLE = 9     # 3 lerps of a multiply and a multiply-add
 OPS_LK_TEMPLATE = 5 * OPS_SHARED_SAMPLE + 10   # T and 4 neighbours; 2 differences,
@@ -40,13 +41,38 @@ OPS_LK_SOLVE = OPS_CELL + 13                   # per window and step: the cell, 
                                                # division), the update, |d|^2
 OPS_LK_LEVEL = 2 * OPS_CELL + 12               # per window and level: the template's and
                                                # the error pass's cells, min eigenvalue
-OPS_CORNER = 215          # per pixel: scale 1, 16 ring differences, the 16
-                          # 10-arc minima of each sign by doubling (pairs,
-                          # fours, eights and a last pair: 2 x 64), their
-                          # maxima (2 x 15) and 3 threshold tests, strict NMS
-                          # 8, central differences 4, 3 products, 8-wide box
-                          # sums as running sums (3 sums, 2 passes, add and
-                          # subtract: 12), min eigenvalue 10
+# sparse alignment (csrc/sparse_align.cu), H taken per point as J^T G J
+OPS_ALIGN_PROJECT = 43    # a point into the image: quaternion rotation 30 (two
+                          # cross products of 9, 3 multiply-adds, 3 doublings, 3
+                          # sums), translation 3, the |z| guard 2, 2 divisions,
+                          # 2 multiply-adds
+OPS_ALIGN_REF_PIXEL = 10  # gx, gy (2 differences, 2 halvings) and their 3
+                          # products summed into the point's 2x2 G
+OPS_ALIGN_PIXEL = OPS_SHARED_SAMPLE + 7   # per pixel and evaluation: the sample,
+                                          # the residual, gx r and gy r and r r summed
+OPS_ALIGN_POINT = OPS_ALIGN_PROJECT + OPS_CELL + 198   # per point and evaluation:
+                          # the patch's cell, the in-front weight 2, J_uv 23
+                          # (1/z, x/z, y/z, 4 scaled entries of 8 in all, 6
+                          # rotational entries of 12), G J
+                          # 36 (12 entries of a product and a multiply-add), the
+                          # 21 entries of H at 5 (a product, a multiply-add, the
+                          # weight, the sum), the 6 of b at 5, the cost 2
+OPS_ALIGN_LM = 300        # per LM step: damping 18, the 6x6 Cholesky factor 91,
+                          # both substitutions 72, SE3.exp about 60, the pose
+                          # product and its normalisation about 60
+# K3 (csrc/detect.cu): a pixel pays for what it is
+OPS_CORNER_TEST = 36      # every pixel: scale 1, the 8 even ring differences,
+                          # 16 threshold tests, a run of 5 in each sign (4
+                          # conjunctions and a test: 2 x 5), either 1
+OPS_CORNER_ARCS = 169     # where the test passes: the 8 odd ring differences,
+                          # the 16 10-arc minima of each sign by doubling
+                          # (pairs, fours, eights and a last pair: 2 x 64),
+                          # their maxima (2 x 15), 2 threshold tests, the
+                          # larger sign 1
+OPS_CORNER_NMS = 8        # where there is a FAST score: the 8 neighbours
+OPS_CORNER_BOX = 64 * 8 + 10   # at an NMS survivor: 2 central differences, 3
+                          # products and 3 sums at each of the box's 8x8
+                          # pixels, min eigenvalue 10
 OPS_REMAP_COORD = 10      # 2 floors, 2 fractions, 2 complements, 4 bound tests
 OPS_REMAP_CHANNEL = 9     # 6 products, 3 sums
 OPS_SPHERICAL = 20        # 2 differences, 2 divisions, 4 sin/cos, 2 products,
@@ -161,13 +187,63 @@ def k2_sample(img, centers, half: int) -> dict:
     h, w = img.shape
     n_bytes = 4 * touched_pixels(h, w, *_window_boxes(centers, half, half + 1))
     n_bytes += n * 8 + n * P * 4
-    return bound(n_bytes, n * P * OPS_SAMPLE)
+    return bound(n_bytes, n * (P * OPS_SHARED_SAMPLE + OPS_CELL))
 
 
-def k3_corners(img) -> dict:
-    """One dr3_corner_response call: the image in, the score map out."""
-    h, w = img.shape
-    return bound(2 * 4 * h * w, h * w * OPS_CORNER)
+def k2_sparse_align(img_ref, img_cur, T_ref, T_init, T_final, cam, points_w,
+                    level: int, half_patch: int, iters: int) -> dict:
+    """One dr3_sparse_align call: the reference level's pixels under the
+    (W + 2)^2 patches, the current level's pixels under the W^2 patches
+    from the start pose to the final one (the LM path's windows), points,
+    valid flags, both poses and the intrinsics in, pose, costs and n_used
+    out; operations of the reference stage, of iters + 1 evaluations of the
+    normal equations and of iters LM steps (no early exit: the count does
+    not depend on the data)."""
+    n = points_w.shape[0]
+    W = 2 * half_patch + 1
+    scale = 1.0 / (2.0 ** level)
+
+    def project(T):
+        xc = T.apply(points_w)
+        z = xc[:, 2]
+        z = torch.where(z.abs() < 1e-9, torch.full_like(z, 1e-9), z)
+        return torch.stack([cam.fx * scale * xc[:, 0] / z + cam.cx * scale,
+                            cam.fy * scale * xc[:, 1] / z + cam.cy * scale], -1)
+
+    hr, wr = img_ref.shape
+    hc, wc = img_cur.shape
+    n_bytes = 4 * touched_pixels(hr, wr, *_window_boxes(project(T_ref), half_patch + 1,
+                                                        half_patch + 2))
+    n_bytes += 4 * touched_pixels(hc, wc, *_span_boxes(project(T_init), project(T_final),
+                                                       half_patch, half_patch + 1))
+    n_bytes += n * (12 + 1) + 4 * (2 * 7 + 4) + 4 * 9 + 8
+    n_ops = (n * ((W + 2) ** 2 * OPS_SHARED_SAMPLE + OPS_CELL + W * W * OPS_ALIGN_REF_PIXEL
+                  + OPS_ALIGN_PROJECT)
+             + (iters + 1) * n * (W * W * OPS_ALIGN_PIXEL + OPS_ALIGN_POINT)
+             + iters * OPS_ALIGN_LM)
+    return bound(n_bytes, n_ops)
+
+
+def k3_corners(levels, fast_threshold: float) -> dict:
+    """One dr3_corner_response call over the images ``levels``: each image
+    in, each score map out; operations at what these images need, from the
+    plain version's maps: ``bound["pixels"]`` take the half-ring test,
+    ``["candidates"]`` pass it (inside FAST's 3-px border) and take the arc
+    minima, ``["scored"]`` have a FAST score and take the NMS,
+    ``["survivors"]`` pass it (inside the 5-px border) and take the box."""
+    count = dict(pixels=0, candidates=0, scored=0, survivors=0)
+    for img in levels:
+        h, w = img.shape
+        fast = corners.fast_score_map(img, fast_threshold)
+        passed = corners.half_ring_pass_map(img, fast_threshold)
+        count["pixels"] += h * w
+        count["candidates"] += int((passed & corners._border_mask(h, w, 3, img.device)).sum())
+        count["scored"] += int((fast > 0).sum())
+        count["survivors"] += int((corners.nms3x3(fast)
+                                   & corners._border_mask(h, w, 5, img.device)).sum())
+    n_ops = (count["pixels"] * OPS_CORNER_TEST + count["candidates"] * OPS_CORNER_ARCS
+             + count["scored"] * OPS_CORNER_NMS + count["survivors"] * OPS_CORNER_BOX)
+    return dict(bound(2 * 4 * count["pixels"], n_ops), **count)
 
 
 def _gather_bytes(img, x, y, valid=None) -> int:

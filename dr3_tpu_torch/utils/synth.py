@@ -113,6 +113,23 @@ def render_scene(cam, T, tex_near, tex_far, z_near=6.0, z_far=14.0,
     return img.astype(np.float32)
 
 
+def scene_points(cam, T, xy, z_near=6.0, z_far=14.0, near_halfw=2.2, near_halfh=1.6):
+    """World points [N, 3] (float32) that the pixels xy [N, 2] of the view
+    :func:`render_scene` renders from pose T see: each pixel's ray meets
+    the near plane inside its rectangle, else the far plane."""
+    xy = np.asarray(xy, np.float64)
+    fx, fy, cx, cy = (float(v) for v in (cam.fx, cam.fy, cam.cx, cam.cy))
+    d_w = np.stack([(xy[:, 0] - cx) / fx, (xy[:, 1] - cy) / fy, np.ones(len(xy))], -1) @ T.R
+    centre = -T.R.T @ T.t
+
+    def hit(z_plane):
+        return centre + ((z_plane - centre[2]) / d_w[:, 2])[:, None] * d_w
+
+    near, far = hit(z_near), hit(z_far)
+    on_near = (np.abs(near[:, 0]) < near_halfw) & (np.abs(near[:, 1]) < near_halfh)
+    return np.where(on_near[:, None], near, far).astype(np.float32)
+
+
 # ---------------------------------------------------------------------------
 # panorama views: a pinhole camera turning about its y axis inside a
 # textured sphere

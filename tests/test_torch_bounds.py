@@ -10,7 +10,7 @@ import torch
 from dr3_tpu_torch.ops import lk
 from dr3_tpu_torch.ops.pyramid import build_pyramid
 from dr3_tpu_torch.tools import bounds
-from dr3_tpu_torch.tools.cudatime import per_launch
+from dr3_tpu_torch.tools.cudatime import per_launch, uneven
 
 
 def _smooth_pair(rng, h=60, w=80, shift=(0.7, -1.2)):
@@ -82,6 +82,59 @@ def test_k1_bounds_count_the_work(rng):
     assert a["steps"] == int(want.sum()) and a["bytes"] > tmpl.numel() * 4
 
 
+def test_sparse_align_bound_counts_the_work():
+    from dr3_tpu_torch.geometry.lie import SE3
+    from dr3_tpu_torch.models.camera import Pinhole
+    from tests.torch_parity import sparse_align_case
+
+    c = sparse_align_case("nominal", n=50)
+    t = torch.as_tensor
+    T_ref, T_init = SE3(*map(t, c["T_ref"])), SE3(*map(t, c["T_init"]))
+    cam = Pinhole.create(*c["intrinsics"])
+    n, half, iters = 50, 2, 12
+    b = bounds.k2_sparse_align(t(c["img_ref"]), t(c["img_cur"]), T_ref, T_init, T_init, cam,
+                               t(c["points"]), c["level"], half, iters)
+    assert b["ops"] == (n * (49 * bounds.OPS_SHARED_SAMPLE + bounds.OPS_CELL
+                             + 25 * bounds.OPS_ALIGN_REF_PIXEL + bounds.OPS_ALIGN_PROJECT)
+                        + 13 * n * (25 * bounds.OPS_ALIGN_PIXEL + bounds.OPS_ALIGN_POINT)
+                        + 12 * bounds.OPS_ALIGN_LM)
+    fixed = n * 13 + 4 * 18 + 44
+    # the patches' pixels at least once where they do not overlap, at most
+    # every pixel of both levels
+    pixels = c["img_ref"].size + c["img_cur"].size
+    assert fixed + 4 * 49 < b["bytes"] <= fixed + 4 * pixels
+    # a start pose elsewhere widens the current level's windows
+    far = SE3(T_init.wxyz, T_init.t + torch.tensor([0.3, 0.0, 0.0]))
+    wider = bounds.k2_sparse_align(t(c["img_ref"]), t(c["img_cur"]), T_ref, far, T_init, cam,
+                                   t(c["points"]), c["level"], half, iters)
+    assert wider["bytes"] > b["bytes"] and wider["ops"] == b["ops"]
+
+
+@pytest.mark.parametrize("threshold", [10.0, 40.0])
+def test_k3_bound_counts_what_the_image_needs(rng, threshold):
+    """Bytes for every pixel; operations by what each pixel is, nested as
+    the kernel's stages are, and summed over the levels of a pyramid."""
+    from tests.test_torch_corners import _kind_image
+
+    lv = build_pyramid(torch.as_tensor(_kind_image("blobs", rng, 96, 128)), 2)
+    both, one, two = (bounds.k3_corners(x, threshold) for x in (lv, lv[:1], lv[1:]))
+    keys = ("pixels", "candidates", "scored", "survivors")
+    for b in (one, two):
+        assert b["pixels"] > b["candidates"] >= b["scored"] >= b["survivors"]
+        assert b["ops"] == (b["pixels"] * bounds.OPS_CORNER_TEST
+                            + b["candidates"] * bounds.OPS_CORNER_ARCS
+                            + b["scored"] * bounds.OPS_CORNER_NMS
+                            + b["survivors"] * bounds.OPS_CORNER_BOX)
+    assert one["pixels"] == lv[0].numel() and one["survivors"] > 0
+    assert one["survivors"] == int((bounds.corners._corner_response_plain(lv[0], threshold)
+                                    != 0).sum())
+    assert all(both[k] == one[k] + two[k] for k in keys + ("ops",))
+    assert both["bytes"] == 8 * (lv[0].numel() + lv[1].numel())
+    # a flat image pays the test alone
+    flat = bounds.k3_corners([torch.full((40, 50), 0.5)], threshold)
+    assert flat["ops"] == 2000 * bounds.OPS_CORNER_TEST and flat["bound_by"] == "bytes"
+
+
 def test_bound_takes_the_larger_time():
     assert bounds.bound(3.35e9, 0)["bound_by"] == "bytes"
     b = bounds.bound(3.35e6, 67e9)
@@ -97,3 +150,13 @@ def test_per_launch_aggregates_a_kernel_across_its_instances():
              "lk_align": "lk_align_kernel"}
     assert per_launch(events, names) == {"lk_pyramid": (4, 20.0),
                                          "sample_patches": (10, 1.5)}
+
+
+def test_uneven_names_lost_and_stray_events():
+    """100 calls of one kernel and three copies: a whole window has nothing
+    uneven; a window that lost events or holds a stray one names them."""
+    whole = {"corner_response_kernel": (100, 1400.0), "memcpy": (300, 600.0)}
+    lossy = {"corner_response_kernel": (96, 96 * 14.0), "memcpy": (300, 600.0),
+             "never seen": (0, 0.0), "a stray 36 us kernel": (1, 36.0)}
+    assert uneven(whole, 100) == {}
+    assert uneven(lossy, 100) == {"corner_response_kernel": 96, "a stray 36 us kernel": 1}

@@ -18,9 +18,15 @@ import pytest
 import torch
 from scipy import ndimage
 
+from dr3_tpu_torch.geometry.lie import SE3
+from dr3_tpu_torch.models.camera import Pinhole
 from dr3_tpu_torch.ops import corners, lk
+from dr3_tpu_torch.ops import sparse_align as sa
 from dr3_tpu_torch.ops import warp as tw
 from dr3_tpu_torch.ops.pyramid import build_pyramid
+# pytest puts this file's directory on sys.path; ``tests.torch_parity`` would
+# resolve to an installed package named ``tests`` where there is one
+from torch_parity import SPARSE_ALIGN_CASES, sparse_align_case
 
 pytestmark = pytest.mark.cuda
 
@@ -163,28 +169,130 @@ def test_sample_patches_kernel_matches_plain(rng, dev, half):
                                lk._sample_patches_plain(img, c, half), rtol=0, atol=1e-5)
 
 
-@pytest.mark.parametrize("hw", [(376, 1240), (188, 620), (94, 310), (45, 70)])
-def test_corner_response_kernel_matches_plain(rng, dev, hw):
+def _response_image(rng, hw, dev):
     base = ndimage.gaussian_filter(rng.uniform(0, 1, hw), 1.5)
-    img = torch.as_tensor((0.6 * (base > np.median(base))
-                           + 0.4 * rng.uniform(0, 1, hw)).astype(np.float32), device=dev)
+    return torch.as_tensor((0.6 * (base > np.median(base))
+                            + 0.4 * rng.uniform(0, 1, hw)).astype(np.float32), device=dev)
+
+
+# K3's tile is 32x32: (64, 96) ends on tile edges, (65, 33) one pixel past
+# them, (45, 70) and (7, 9) are smaller than a tile or than the border
+@pytest.mark.parametrize("hw", [(376, 1240), (188, 620), (94, 310), (45, 70), (64, 96),
+                                (65, 33), (7, 9)])
+def test_corner_response_kernel_matches_plain(rng, dev, hw):
+    img = _response_image(rng, hw, dev)
+    before = corners.corner_response.launches
     got = corners.corner_response(img, 10.0)
+    assert corners.corner_response.launches == before + 1
     want = corners._corner_response_plain(img, 10.0)
     assert torch.equal(got > 0, want > 0)
     torch.testing.assert_close(got, want, rtol=2e-3, atol=0.05)
+    assert torch.equal(got, corners.corner_response(img, 10.0))      # run to run
 
 
-def test_wrappers_reject_bad_inputs(dev):
-    img = torch.rand(32, 32, device=dev)
-    pts = torch.full((3, 2), 16.0, device=dev)
-    with pytest.raises(ValueError):
-        lk.track_level(img, img.double(), pts, pts, 3, 2, 1e-3)
-    with pytest.raises(ValueError):
-        lk.sample_patches(img, pts.cpu(), 2)
-    with pytest.raises(ValueError):
-        corners.corner_response(img.t(), 10.0)           # not contiguous
-    levels = build_pyramid(img, 2)
-    assert corners.corner_response(levels[1].contiguous(), 10.0).shape == (16, 16)
+@pytest.mark.parametrize("hw,n_levels", [((376, 1240), 3), ((480, 640), 3), ((96, 130), 4),
+                                         ((45, 70), 1)])
+def test_corner_response_pyramid_kernel_matches_plain(rng, dev, hw, n_levels):
+    """All levels in one launch: each level equal to its own launch bit for
+    bit, and to the plain version as above."""
+    levels = build_pyramid(_response_image(rng, hw, dev), n_levels)
+    before = (corners.corner_response_pyramid.launches, corners.corner_response.launches)
+    got = corners.corner_response_pyramid(levels, 20.0)
+    assert (corners.corner_response_pyramid.launches,
+            corners.corner_response.launches) == (before[0] + 1, before[1])
+    assert len(got) == n_levels
+    for img, g in zip(levels, got):
+        want = corners._corner_response_plain(img, 20.0)
+        assert g.shape == img.shape and torch.equal(g > 0, want > 0)
+        torch.testing.assert_close(g, want, rtol=2e-3, atol=0.05)
+        assert torch.equal(g, corners.corner_response(img, 20.0))
+    feats = corners.detect_features(levels, 30, 20.0, 20.0)
+    plain = corners.detect_features([lv.cpu() for lv in levels], 30, 20.0, 20.0)
+    assert torch.equal(feats.valid.cpu(), plain.valid) and torch.equal(feats.xy.cpu(), plain.xy)
+
+
+# ---------------------------------------------------------------------------
+# sparse alignment in one launch (csrc/sparse_align.cu) against the plain
+# loop on the same card: pose within 1e-4, cost0 rtol 1e-5, n_used equal.
+# The 320x240 level-0 image (307 KB) does not fit a block's shared memory
+# and is sampled from global memory; the others are staged.
+# ---------------------------------------------------------------------------
+
+def _align_args(c, dev, half_patch=None, iters=None):
+    t = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+    return (t(c["img_ref"]), t(c["img_cur"]), SE3(*map(t, c["T_ref"])),
+            SE3(*map(t, c["T_init"])), Pinhole.create(*c["intrinsics"], device=dev),
+            t(c["points"]), t(c["valid"]), c["level"],
+            c["half_patch"] if half_patch is None else half_patch,
+            c["iters"] if iters is None else iters)
+
+
+def _assert_align_close(got, want):
+    assert got.n_used.dtype == want.n_used.dtype and int(got.n_used) == int(want.n_used)
+    torch.testing.assert_close(got.cost0, want.cost0, rtol=1e-5, atol=1e-12)
+    torch.testing.assert_close(got.cost, want.cost, rtol=1e-2, atol=1e-3)
+    torch.testing.assert_close(got.T.wxyz, want.T.wxyz, rtol=0, atol=1e-4)
+    torch.testing.assert_close(got.T.t, want.T.t, rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("name", SPARSE_ALIGN_CASES)
+def test_sparse_align_kernel_matches_plain(dev, name):
+    c = sparse_align_case(name)
+    args = _align_args(c, dev)
+    before = (sa.sparse_align.launches, lk.sample_patches.launches)
+    got = sa.sparse_align(*args)
+    torch.cuda.synchronize()
+    assert (sa.sparse_align.launches, lk.sample_patches.launches) == (before[0] + 1, before[1])
+    _assert_align_close(got, sa._sparse_align_plain(*args))
+    again = sa.sparse_align(*args)                    # fixed-order sums: the same bits
+    assert all(torch.equal(a, b) for a, b in zip(
+        (got.T.wxyz, got.T.t, got.cost0, got.cost, got.n_used),
+        (again.T.wxyz, again.T.t, again.cost0, again.cost, again.n_used)))
+    if name == "all_invalid":
+        assert torch.equal(got.T.wxyz, args[3].wxyz) and torch.equal(got.T.t, args[3].t)
+        assert int(got.n_used) == 0
+
+
+@pytest.mark.parametrize("half_patch", [1, 2, 3, 4, 7])
+@pytest.mark.parametrize("name", ["nominal", "level0"])
+def test_sparse_align_kernel_patch_widths(dev, name, half_patch):
+    args = _align_args(sparse_align_case(name), dev, half_patch=half_patch)
+    _assert_align_close(sa.sparse_align(*args), sa._sparse_align_plain(*args))
+
+
+@pytest.mark.parametrize("n,half_patch", [(1, 2), (7, 2), (1300, 2), (6000, 4)])
+def test_sparse_align_kernel_point_counts(dev, n, half_patch):
+    """One point; fewer points than blocks; more points than one pass of a
+    block's lanes; patches that do not fit shared memory (global scratch)."""
+    args = _align_args(sparse_align_case("nominal", n=n), dev, half_patch=half_patch, iters=6)
+    _assert_align_close(sa.sparse_align(*args), sa._sparse_align_plain(*args))
+
+
+def test_sparse_align_kernel_refuses_a_nan_cost(dev):
+    """A NaN point under a valid flag makes every cost NaN: no step is
+    accepted, as torch.isfinite refuses it in the plain loop."""
+    c = sparse_align_case("nominal")
+    c["points"][40] = np.nan
+    args = _align_args(c, dev)
+    got = sa.sparse_align(*args)
+    want = sa._sparse_align_plain(*args)
+    assert bool(torch.isnan(got.cost0)) and bool(torch.isnan(want.cost0))
+    assert torch.equal(got.T.wxyz, args[3].wxyz) and torch.equal(got.T.t, args[3].t)
+    assert int(got.n_used) == int(want.n_used)
+
+
+def test_sparse_align_rejects_bad_inputs(dev):
+    args = list(_align_args(sparse_align_case("nominal"), dev))
+    before = sa.sparse_align.launches
+    for i, bad in ((0, args[0].double()), (1, args[1].t()), (5, args[5].cpu()),
+                   (5, args[5][:, :2]), (6, args[6].to(torch.uint8)),
+                   (6, args[6][:-1]), (2, SE3(args[2].wxyz.double(), args[2].t)),
+                   (4, Pinhole.create(*sparse_align_case("nominal")["intrinsics"]))):
+        broken = list(args)
+        broken[i] = bad
+        with pytest.raises(ValueError):
+            sa.sparse_align(*broken)
+    assert sa.sparse_align.launches == before
 
 
 # ---------------------------------------------------------------------------

@@ -37,3 +37,88 @@ def tse3(T):
     from dr3_tpu_torch.geometry.lie import SE3
 
     return SE3(tt(T.wxyz), tt(T.t))
+
+
+# ---------------------------------------------------------------------------
+# sparse-alignment cases, numpy only: the CPU parity tests hand them to the
+# JAX package and the port, the card tests to the kernel and its plain
+# version
+# ---------------------------------------------------------------------------
+
+SPARSE_ALIGN_CASES = ("nominal", "all_invalid", "few_usable", "behind_camera",
+                      "outside_image", "iters0", "far_init", "level0", "level2")
+
+
+def sparse_align_case(name: str, n: int = 120) -> dict:
+    """Inputs of one sparse_align call on the rendered two-plane scene
+    (dr3_tpu_torch.utils.synth; a 320x240 camera, the images smoothed and
+    averaged down to ``level``; seeded by the case's name, so every test of
+    a case sees the same scene): numpy arrays ``img_ref``, ``img_cur``,
+    ``T_ref`` / ``T_init`` as (wxyz [4], t [3]), ``points`` [n, 3],
+    ``valid`` [n], the camera's ``intrinsics`` (width, height, fx, fy, cx,
+    cy) and ``level``, ``half_patch``, ``iters``. The cases a one-launch
+    kernel must reproduce: every point invalid; fewer than 20 usable;
+    points behind the current camera and on its |z| < 1e-9 guard;
+    projections off the image (edge clamp); no LM step; a start so far off
+    that LM steps are rejected; levels 0 and 2."""
+    import zlib
+
+    from scipy import ndimage
+
+    from dr3_tpu_torch.models.camera import Pinhole
+    from dr3_tpu_torch.utils import synth
+
+    rng = np.random.default_rng(zlib.crc32(name.encode()))
+    intrinsics = (320, 240, 260.0, 260.0, 160.0, 120.0)
+    cam = Pinhole.create(*intrinsics)
+    level = {"level0": 0, "level2": 2}.get(name, 1)
+    tn, tf = synth.make_textures(rng, size=900)
+    T_ref = synth.NpSE3.exp(np.zeros(6))
+    T_cur = synth.NpSE3.exp([-0.05, 0.02, 0.04, 0.003, -0.004, 0.002])
+
+    def view(T):
+        img = ndimage.gaussian_filter(synth.render_scene(cam, T, tn, tf), 2.0)
+        for _ in range(level):
+            h, w = img.shape
+            img = img.reshape(h // 2, 2, w // 2, 2).mean((1, 3))
+        return np.ascontiguousarray(img, np.float32)
+
+    xy = np.stack([rng.uniform(30, 290, n), rng.uniform(30, 210, n)], -1)
+    if name == "outside_image":
+        # some reference pixels within a patch of the border (ref_in False
+        # at the level's scale) and some that leave the current image
+        xy[:15] = np.stack([rng.uniform(0, 3, 15), rng.uniform(0, 240, 15)], -1)
+        xy[15:30] = np.stack([rng.uniform(4, 10, 15), rng.uniform(4, 10, 15)], -1)
+    points = synth.scene_points(cam, T_ref, xy)
+    valid = np.ones(n, bool)
+    valid[:10] = name == "outside_image"
+    if name == "all_invalid":
+        valid[:] = False
+    elif name == "few_usable":
+        valid[12:] = False
+        valid[:12] = True
+    elif name == "behind_camera":
+        # behind both cameras; in front of the reference but behind the start
+        # pose (which stands 0.2 further along z); on the |z| < 1e-9 guard
+        points[10:14, 2] = -3.0
+        points[14:18] = [0.01, -0.01, 0.1]
+        points[18] = [0.3, 0.2, 0.0]
+        points[19] = [0.3, 0.2, 5e-10]
+    init = np.zeros(6)
+    if name == "far_init":
+        init = np.array([0.45, -0.3, 0.3, 0.03, 0.05, -0.04])
+    elif name == "behind_camera":
+        init = np.array([0.0, 0.0, -0.2, 0.0, 0.0, 0.0])
+    Ti = synth.NpSE3.exp(init)
+
+    def quat_t(T):
+        # small rotations only: w is the largest component
+        R = T.R
+        w = 0.5 * np.sqrt(1.0 + np.trace(R))
+        q = [w, (R[2, 1] - R[1, 2]) / (4 * w), (R[0, 2] - R[2, 0]) / (4 * w),
+             (R[1, 0] - R[0, 1]) / (4 * w)]
+        return np.asarray(q, np.float32), T.t.astype(np.float32)
+
+    return dict(img_ref=view(T_ref), img_cur=view(T_cur), T_ref=quat_t(T_ref),
+                T_init=quat_t(Ti), points=points, valid=valid, intrinsics=intrinsics,
+                level=level, half_patch=2, iters=0 if name == "iters0" else 12)
