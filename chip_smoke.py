@@ -24,9 +24,14 @@ Phases (any failure raises, so the exit code is non-zero):
    loop at 546 slots on level 2 of frames 0 and 1-3, 12 steps: pose within
    1e-4, cost0 rtol 1e-5, n_used equal, two launches bit-equal, and the
    accept decisions of both (read off the cost after 0..12 steps); K4 (csrc/warp.cu) at the
-   panorama's: the spherical pre-warp of a 640x480x3 view, a 1240x376x3
-   view onto its canvas, the row / column remaps at 376x1240 and the
-   descriptor patches, atol 1e-5, <= 3 flips of the validity mask; K3 and
+   panorama's: the spherical and cylindrical pre-warps of a 640x480x3
+   view, a 1240x376x3 view onto its pair canvas, the TRANSLATE paste (a
+   pre-warped view onto the whole 8-view canvas through T @ H, as
+   Panorama builds it), the row / column remaps at 376x1240 and the
+   descriptor patches, bit-exact (max |d| 0, no validity flip), and the
+   tiles of the two perspective warps that the kernel's whole-tile test
+   writes as fill, its decisions equal to tools/warp_tiles.py's host copy;
+   K3 and
    K1 again at the panorama alignment's shapes (two pre-warped 640x480
    views, their detection levels, LK from the ZNCC matches), with the VO
    shapes' gates;
@@ -54,9 +59,10 @@ Phases (any failure raises, so the exit code is non-zero):
 
 The kernel table (launches per general frame or per panorama, device us,
 bound, share of bound, library us) is printed before the last three
-lines of stdout: a JSON object of per-kernel results, the card's name and
-power limit, and ``{"ok": true, "device": {...}}``. Imports nothing of
-JAX or dr3_tpu.
+lines of stdout: a JSON object of per-kernel results (K4's ``remap`` timed
+at the descriptor patches, ``warp`` at the pair canvas; the paste is a row
+of the table only), the card's name and power limit, and ``{"ok": true,
+"device": {...}}``. Imports nothing of JAX or dr3_tpu.
 """
 
 from __future__ import annotations
@@ -82,7 +88,7 @@ from dr3_tpu_torch.ops import sparse_align as sa  # noqa: E402
 from dr3_tpu_torch.pipelines.panorama import Panorama, PanType  # noqa: E402
 from dr3_tpu_torch.pipelines.stitch import find_correspondences  # noqa: E402
 from dr3_tpu_torch.pipelines.vo import MonoVO, Stage  # noqa: E402
-from dr3_tpu_torch.tools import bounds  # noqa: E402
+from dr3_tpu_torch.tools import bounds, warp_tiles  # noqa: E402
 from dr3_tpu_torch.tools.cudatime import cuda_ms, device_ms, per_launch, profile  # noqa: E402
 from dr3_tpu_torch.utils import synth  # noqa: E402
 from dr3_tpu_torch.utils.config import Config  # noqa: E402
@@ -101,12 +107,16 @@ PAN_N, PAN_W, PAN_H, PAN_F, PAN_YAW, PAN_FEATHER = 8, 640, 480, 600.0, 0.35, 40
 # corners within 2.69 px over 4 texture seeds (PERF.md), gated at 3 px
 HOMO_N, HOMO_YAW = 4, 0.15
 DEV = "cuda"
-# the kernels' names in a profile: entry of the `kernels` line -> __global__
+# the kernels' names in a profile: kernel or K4 form -> its __global__
 KERNEL_NAMES = {"lk_pyramid": "lk_pyramid_kernel", "lk_align": "lk_align_kernel",
                 "sample_patches": "sample_patches_kernel",
                 "sparse_align": "sparse_align_kernel",
-                "corner_response": "corner_response_kernel", "remap": "remap_kernel",
-                "warp": "warp_kernel"}
+                "corner_response": "corner_response_kernel",
+                "remap_xy": "remap_xy_kernel", "remap_rows": "remap_rows_kernel",
+                "remap_cols": "remap_cols_kernel",
+                "warp_perspective": "warp_homography_kernel",
+                "warp_spherical": "warp_spherical_kernel",
+                "warp_cylindrical": "warp_cylindrical_kernel"}
 
 
 def log(*a):
@@ -577,22 +587,32 @@ def render_panorama_cases(seed=SEED):
 
 
 def k4_check(name, got, want, got_valid=None, want_valid=None) -> float:
-    """Kernel vs plain on the card: atol 1e-5, <= 3 validity flips."""
+    """Kernel vs plain on the card, bit-exact: max |d| 0 (NaN where both are
+    NaN), 0 validity flips."""
     torch.cuda.synchronize()
     if tuple(got.shape) != tuple(want.shape):
         raise AssertionError(f"K4 {name}: shape {tuple(got.shape)} vs {tuple(want.shape)}")
-    flips = 0
-    if got_valid is not None:
-        flips = int((got_valid != want_valid).sum())
-        if flips > 3:
-            raise AssertionError(f"K4 {name}: {flips} validity flips")
-        both = got_valid & want_valid
-        got, want = got[both], want[both]
-    err = float((got - want).abs().max()) if got.numel() else 0.0
-    if not err <= 1e-5:
-        raise AssertionError(f"K4 {name}: max |d| {err}")
+    flips = 0 if got_valid is None else int((got_valid != want_valid).sum())
+    both_nan = torch.isnan(got) & torch.isnan(want)
+    d = torch.where(both_nan, torch.zeros_like(got), got - want).abs()
+    err = float(d.max()) if d.numel() else 0.0
+    if flips or not err == 0.0:
+        raise AssertionError(f"K4 {name}: max |d| {err}, {flips} validity flips")
     log(f"[K4] {name}: max |d| {err:.3g}, validity flips {flips}")
     return err
+
+
+def paste_case(views):
+    """View 3 of the TRANSLATE case after the spherical pre-warp, and the
+    homography and canvas its paste warps it through, as Panorama.process
+    builds them (T @ H_3 onto the whole canvas), from one run of it."""
+    pan = Panorama(focal_length=PAN_F, pan_type=PanType.TRANSLATE, feathering_width=PAN_FEATHER,
+                   device=DEV)
+    canvas = pan.process(views)
+    T = np.eye(3, dtype=np.float32)
+    T[0, 2], T[1, 2] = -pan.origin_[0], -pan.origin_[1]
+    view = warp.warp_spherical(torch.as_tensor(views[3], device=DEV), PAN_F)
+    return view, (T @ pan.homographies_[3]).astype(np.float32), tuple(canvas.shape[:2])
 
 
 def phase_k4_kernels(card, cases):
@@ -629,6 +649,22 @@ def phase_k4_kernels(card, cases):
     want, wv = warp._warp_perspective_plain(kview, Minv, out_hw, 0.0)
     errs["warp"].append(k4_check(f"warp_perspective {tuple(kview.shape)} -> {out_hw}",
                                  got, want, gv, wv))
+    # the TRANSLATE paste: a pre-warped view onto the whole 8-view canvas
+    pview, P, paste_hw = paste_case(cases["translate"]["views"])
+    Pinv = warp.homography_inverse(P)
+    got, gv = warp.warp_perspective(pview, P, paste_hw)
+    want, wv = warp._warp_perspective_plain(pview, Pinv, paste_hw, 0.0)
+    errs["warp"].append(k4_check(f"warp_perspective (paste) {tuple(pview.shape)} -> "
+                                 f"{paste_hw}", got, want, gv, wv))
+    for tag, Mi, src, hw in (("pair canvas", Minv, kview, out_hw),
+                             ("paste", Pinv, pview, paste_hw)):
+        tiles = warp_tiles.kernel_shortcut_tiles(Mi, tuple(src.shape[:2]), hw)
+        if not np.array_equal(tiles, warp_tiles.shortcut_tiles(Mi, tuple(src.shape[:2]), hw)):
+            raise AssertionError(f"K4 warp_perspective ({tag}): the host copy of the "
+                                 f"whole-tile test disagrees with the kernel's")
+        log(f"[K4] warp_perspective ({tag}): the kernel's test takes {int(tiles.sum())} of "
+            f"{tiles.size} tiles ({100 * tiles.mean():.1f}%), wholly outside the source, "
+            f"written as fill without sampling (host copy agrees)")
 
     # K4a / K4b contracts at 376x1240: smooth row and column fields
     gy, gx = torch.meshgrid(torch.arange(h, dtype=torch.float32, device=dev),
@@ -673,8 +709,11 @@ def phase_k4_kernels(card, cases):
         log(f"[K4] {name} grid_sample yardstick: max |d| "
             f"{float((library[name]().reshape(want.shape) - want).abs().max()):.3g}")
     sph_u, sph_v = warp.spherical_warp_field(view.shape[0], view.shape[1], PAN_F, device=dev)
+    cyl_u, cyl_v = warp.cylindrical_warp_field(view.shape[0], view.shape[1], PAN_F, device=dev)
     per_xy = warp.apply_homography(torch.as_tensor(Minv, device=dev),
                                    warp.output_grid(*out_hw, device=dev))
+    paste_xy = warp.apply_homography(torch.as_tensor(Pinv, device=dev),
+                                     warp.output_grid(*paste_hw, device=dev))
     rows = {
         "remap_rows": measure(lambda: warp.remap_rows(gray, v),
                               lambda: warp._remap_rows_plain(gray, v),
@@ -697,6 +736,17 @@ def phase_k4_kernels(card, cases):
                                   bound=bounds.k4_warp(view, sph_u, sph_v, False,
                                                        bounds.OPS_SPHERICAL),
                                   shape=f"{tuple(view.shape)}"),
+        "warp_cylindrical": measure(lambda: warp.warp_cylindrical(view, PAN_F),
+                                    lambda: warp._warp_field(view, warp._CYLINDRICAL, PAN_F),
+                                    bound=bounds.k4_warp(view, cyl_u, cyl_v, False,
+                                                         bounds.OPS_CYLINDRICAL),
+                                    shape=f"{tuple(view.shape)}"),
+        "warp_perspective (paste)": measure(
+            lambda: warp.warp_perspective(pview, P, paste_hw),
+            lambda: warp._warp_perspective_plain(pview, Pinv, paste_hw, 0.0),
+            bound=bounds.k4_warp(pview, paste_xy[..., 0], paste_xy[..., 1], True,
+                                 bounds.OPS_HOMOGRAPHY),
+            shape=f"{tuple(pview.shape)} -> {paste_hw}"),
         "warp_perspective": measure(lambda: warp.warp_perspective(kview, M, out_hw),
                                     lambda: warp._warp_perspective_plain(kview, Minv, out_hw,
                                                                          0.0),
@@ -841,6 +891,8 @@ def phase_panorama(card, cases):
     log(f"[panorama] translate: {PAN_N} views {PAN_W}x{PAN_H}x3, {reps * PAN_N / wall:.2f} "
         f"images/s ({1e3 * wall / reps:.1f} ms per panorama) ({card})")
     check_translate(pan, out, tc)
+    torch.cuda.synchronize()
+    pastes = warp.warp_perspective.launches                  # the TRANSLATE runs' pastes
 
     hc = cases["homography"]
     pan_h = Panorama(feathering_width=PAN_FEATHER, device=DEV)
@@ -873,7 +925,7 @@ def phase_panorama(card, cases):
     log(f"[panorama] device time per launch over one more TRANSLATE panorama under "
         f"torch.profiler: " + ", ".join(f"{k} {us:.2f} us x {c}" for k, (c, us) in window.items())
         + f" ({card})")
-    return groups, launches, 2 + reps, window
+    return groups, launches, 2 + reps, window, pastes / (1 + reps)
 
 
 def phase_cpu_panorama():
@@ -943,7 +995,8 @@ def main():
     launches, n_general, slice_window = phase_slice(card, frames[:N_FRAMES], gt[:N_FRAMES],
                                                     frames[N_FRAMES:])
     phase_cpu_reference()
-    pano_launches, pano_wrappers, n_panoramas, pano_window = phase_panorama(card, pano_cases)
+    pano_launches, pano_wrappers, n_panoramas, pano_window, pastes = phase_panorama(card,
+                                                                                     pano_cases)
     phase_cpu_panorama()
 
     # dr3_remap and dr3_warp each replace both TPU warp kernels: the
@@ -968,16 +1021,18 @@ def main():
                           *[(c.__name__, c.__name__) for c in K4_COUNTERS["remap"]],
                           *[(c.__name__, c.__name__) for c in K4_COUNTERS["warp"]]):
         per[name] = f"{pano_wrappers[counter] / n_panoramas:.2f} per panorama"
-    # the profiled windows' kernels (names as in KERNEL_NAMES); the panorama's
-    # warp kernel runs both warp_spherical and warp_perspective
+    per["warp_perspective (paste)"] = f"{pastes:.2f} per TRANSLATE panorama"
+    # the profiled windows' kernels (names as in KERNEL_NAMES); the profiled
+    # panorama is a TRANSLATE one, whose perspective warps are all pastes
     in_path = {name: slice_window.get(name) for name in vo_rows}
     in_path.update({"corner_response": None,
                     "corner_response_pyramid": slice_window.get("corner_response"),
                     "lk_pyramid (panorama)": pano_window.get("lk_pyramid"),
                     "corner_response_pyramid (panorama)": pano_window.get("corner_response"),
-                    "remap_xy": pano_window.get("remap"),
-                    "warp_spherical": pano_window.get("warp"),
-                    "warp_perspective": pano_window.get("warp")})
+                    "remap_xy": pano_window.get("remap_xy"),
+                    "warp_spherical": pano_window.get("warp_spherical"),
+                    "warp_perspective": None,
+                    "warp_perspective (paste)": pano_window.get("warp_perspective")})
     print_table({**{k: results[k] for k in vo_rows}, **pano_rows, **k4_rows},
                 per, in_path, card)
     meta = {

@@ -44,7 +44,8 @@ SIGNATURES = {
                          _P, _P, _P, _P],
     "dr3_corner_response": [_I, _P, _P, _F, _P, _P],
     "dr3_remap": [_P, _I, _I, _I, _I, _P, _I, _I, _I, _F, _P, _P, _P],
-    "dr3_warp": [_P, _I, _I, _I, _I, *[_F] * 9, _I, _I, _I, _F, _P, _P, _P],
+    "dr3_warp": [_P, _I, _I, _I, _I, *[_F] * 9, _I, _I, _F, _P, _P, _P],
+    "dr3_warp_shortcut_tiles": [*[_F] * 9, _I, _I, _I, _I, _P, _P, _P],
 }
 
 _lib = None

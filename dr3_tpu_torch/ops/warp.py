@@ -17,9 +17,10 @@ against it, and so is kernel K4 (csrc/warp.cu), whose wrappers live here:
 
 Each wrapper runs its plain version (``_*_plain``) for a CPU tensor; for a
 CUDA tensor it launches the kernel or raises. ``<wrapper>.launches`` counts
-kernel launches. The kernel equals direct bilinear sampling: the JAX
-package's TPU two-pass warps and their capacity checks have no counterpart
-(dr3_tpu/ops/warp.py's ``*_auto`` dispatchers collapse into this rule).
+kernel launches. The kernel is bit-exact against the plain version on the
+card. It equals direct bilinear sampling: the JAX package's TPU two-pass
+warps and their capacity checks have no counterpart (dr3_tpu/ops/warp.py's
+``*_auto`` dispatchers collapse into this rule).
 
 The plain field functions divide by the focal length as a tensor on the
 image's device: PyTorch divides a CUDA tensor by a Python scalar as a
@@ -128,8 +129,7 @@ def _launch_warp(img, kind, params, ho, wo, fill, out, valid):
     c = _check_image(img)
     h, w = img.shape[:2]
     p = [float(v) for v in params] + [0.0] * (9 - len(params))
-    _native.call("dr3_warp", img, h, w, c, kind, *p, ho, wo, 0, float(fill),
-                 out, valid)
+    _native.call("dr3_warp", img, h, w, c, kind, *p, ho, wo, float(fill), out, valid)
 
 
 # ---------------------------------------------------------------------------

@@ -77,6 +77,8 @@ OPS_REMAP_COORD = 10      # 2 floors, 2 fractions, 2 complements, 4 bound tests
 OPS_REMAP_CHANNEL = 9     # 6 products, 3 sums
 OPS_SPHERICAL = 20        # 2 differences, 2 divisions, 4 sin/cos, 2 products,
                           # 2 products, 2 divisions, 2 sums, 2 guards
+OPS_CYLINDRICAL = 16      # the spherical field without sin b, cos b and their
+                          # 2 products
 OPS_HOMOGRAPHY = 15       # 6 products, 6 sums, 2 divisions, 1 guard
 
 

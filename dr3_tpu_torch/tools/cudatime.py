@@ -83,13 +83,15 @@ def profile(fn, n: int = 1) -> dict[str, tuple[int, float]]:
 
 def whole_window(fn, n: int, windows: int = 4):
     """(events, uneven counts) of a profiler window of n calls of fn(): the
-    first of up to ``windows`` windows in which every kernel was seen a whole
-    number of times per call, else the last one taken, with what was
-    :func:`uneven` in it."""
+    first of up to ``windows`` windows that saw device time and in which
+    every kernel was seen a whole number of times per call, else the last
+    one taken, with what was :func:`uneven` in it. Now and then the profiler
+    records no device event in a whole window; such a window is taken
+    again, not read as free."""
     for _ in range(windows):
         events = profile(fn, n)
         odd = uneven(events, n)
-        if not odd:
+        if not odd and sum(us for _, us in events.values()) > 0.0:
             break
     return events, odd
 
@@ -98,8 +100,9 @@ def device_ms(fn, n: int = 100, warm: int = 3) -> tuple[float, str]:
     """Device time per call of fn() in ms, and how it was taken: the summed
     device time of all it runs on the card over n back-to-back calls in one
     profiler window (:func:`whole_window`), divided by n ("profiler", with
-    the uneven counts where no window was whole); where the profiler saw no
-    device time, CUDA events around n back-to-back calls ("events")."""
+    the uneven counts where no window was whole); where no window saw
+    device time, CUDA events around n back-to-back calls ("events"), which
+    for a kernel shorter than its launch measure the host's launch rate."""
     for _ in range(warm):
         fn()
     events, odd = whole_window(fn, n)

@@ -9,7 +9,7 @@ import torch
 
 from dr3_tpu_torch.ops import lk
 from dr3_tpu_torch.ops.pyramid import build_pyramid
-from dr3_tpu_torch.tools import bounds
+from dr3_tpu_torch.tools import bounds, cudatime
 from dr3_tpu_torch.tools.cudatime import per_launch, uneven
 
 
@@ -160,3 +160,15 @@ def test_uneven_names_lost_and_stray_events():
              "never seen": (0, 0.0), "a stray 36 us kernel": (1, 36.0)}
     assert uneven(whole, 100) == {}
     assert uneven(lossy, 100) == {"corner_response_kernel": 96, "a stray 36 us kernel": 1}
+
+
+def test_whole_window_takes_a_window_without_device_time_again(monkeypatch):
+    """A window in which the profiler recorded no device event has nothing
+    uneven but is not free: it is taken again, and so is one that lost
+    events; the first whole window with device time is kept."""
+    whole = {"sample_patches_kernel": (100, 154.0)}
+    windows = iter([{}, {"sample_patches_kernel": (97, 150.0)}, whole, {}])
+    seen = []
+    monkeypatch.setattr(cudatime, "profile", lambda fn, n: seen.append(n) or next(windows))
+    assert cudatime.whole_window(lambda: None, 100) == (whole, {})
+    assert seen == [100, 100, 100]

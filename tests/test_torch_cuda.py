@@ -24,6 +24,7 @@ from dr3_tpu_torch.ops import corners, lk
 from dr3_tpu_torch.ops import sparse_align as sa
 from dr3_tpu_torch.ops import warp as tw
 from dr3_tpu_torch.ops.pyramid import build_pyramid
+from dr3_tpu_torch.tools import warp_tiles
 # pytest puts this file's directory on sys.path; ``tests.torch_parity`` would
 # resolve to an installed package named ``tests`` where there is one
 from torch_parity import SPARSE_ALIGN_CASES, sparse_align_case
@@ -298,8 +299,9 @@ def test_sparse_align_rejects_bad_inputs(dev):
 # ---------------------------------------------------------------------------
 # K4 (csrc/warp.cu): remap over a given field, and the warps that compute
 # their own field, against the plain versions on the same card. The kernel
-# rounds every step as the plain PyTorch ops do, so values agree to 1e-5
-# and validity to at most 3 knife-edge flips (tests/test_torch_warp.py).
+# rounds every step as the plain PyTorch ops do and computes a row's or a
+# column's terms with the same operations, so values (NaN where both are
+# NaN) and validity are bit-equal.
 # ---------------------------------------------------------------------------
 
 H_TILT = np.asarray([[1.02, 0.03, 4.0], [-0.02, 0.98, -2.5],
@@ -308,10 +310,8 @@ H_TILT = np.asarray([[1.02, 0.03, 4.0], [-0.02, 0.98, -2.5],
 
 def _k4_close(got, want, got_valid=None, want_valid=None):
     if got_valid is not None:
-        assert int((got_valid != want_valid).sum()) <= 3
-        both = got_valid & want_valid
-        got, want = got[both], want[both]
-    torch.testing.assert_close(got, want, rtol=0, atol=1e-5, equal_nan=True)
+        assert torch.equal(got_valid, want_valid)
+    torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True)
 
 
 def _k4_img(rng, dev, hw, c):
@@ -319,18 +319,114 @@ def _k4_img(rng, dev, hw, c):
     return torch.as_tensor(rng.uniform(0, 1, shape).astype(np.float32), device=dev)
 
 
+def _k4_perspective(img, H, out_hw, fill=0.3):
+    """The kernel's warp_perspective against the plain version, launched once."""
+    before = tw.warp_perspective.launches
+    got, gv = tw.warp_perspective(img, H, out_hw, fill=fill)
+    assert tw.warp_perspective.launches == before + 1
+    want, wv = tw._warp_perspective_plain(img, tw.homography_inverse(H), out_hw, fill)
+    assert got.shape == want.shape and gv.shape == tuple(out_hw)
+    _k4_close(got, want, gv, wv)
+    return gv
+
+
 @pytest.mark.parametrize("hw", [(93, 201), (1, 1)])
 @pytest.mark.parametrize("c", [1, 3])
 def test_k4_warps_match_plain(rng, dev, hw, c):
     img = _k4_img(rng, dev, hw, c)
-    out_hw = (hw[0] + 7, hw[1] + 13)
-    got, gv = tw.warp_perspective(img, H_TILT, out_hw, fill=0.3)
-    want, wv = tw._warp_perspective_plain(img, tw.homography_inverse(H_TILT), out_hw, 0.3)
-    assert got.shape == want.shape and gv.shape == out_hw
-    _k4_close(got, want, gv, wv)
+    _k4_perspective(img, H_TILT, (hw[0] + 7, hw[1] + 13))
     for f in (150.0, 300.0):
         _k4_close(tw.warp_spherical(img, f), tw._warp_field(img, tw._SPHERICAL, f))
         _k4_close(tw.warp_cylindrical(img, f), tw._warp_field(img, tw._CYLINDRICAL, f))
+
+
+# the regimes of the whole-tile shortcut (tests/test_torch_warp.py REGIMES)
+K4_REGIMES = {
+    "paste": (np.asarray([[1.0, 0.0, 63.37], [0.0, 1.0, 0.29], [0.0, 0.0, 1.0]], np.float32),
+              (48, 64), (48, 531)),
+    "paste_full": (np.asarray([[1.0, 0.0, 630.04], [0.0, 1.0, 0.31], [0.0, 0.0, 1.0]],
+                              np.float32), (480, 640), (481, 2111)),
+    "horizon": (np.asarray([[1.0, 0.0, 0.0], [0.0, 1.0, 0.0], [0.01, 0.0, 1.0]], np.float32),
+                (93, 201), (93, 201)),
+    "outside": (np.asarray([[0.9, 0.1, 5000.0], [-0.1, 0.9, 40.0], [1e-5, 0.0, 1.0]],
+                           np.float32), (40, 57), (61, 130)),
+}
+
+
+@pytest.mark.parametrize("regime", sorted(K4_REGIMES))
+@pytest.mark.parametrize("c", [1, 3, 4])
+def test_k4_perspective_regimes_bit_exact(rng, dev, regime, c):
+    H, hw, out_hw = K4_REGIMES[regime]
+    gv = _k4_perspective(_k4_img(rng, dev, hw, c), H, out_hw, fill=0.4)
+    skip = warp_tiles.kernel_shortcut_tiles(tw.homography_inverse(H), hw, out_hw)
+    ty, tx = warp_tiles.tile_of_pixels(out_hw)
+    assert not gv.cpu().numpy()[skip[ty, tx]].any()
+    if regime.startswith("paste"):
+        assert skip.mean() > 0.5
+
+
+def _k4_homographies(seed, n=10):
+    """Seeded homographies onto the canvas: tilted similarities, shifts up
+    to 300 px, perspective terms that put a horizon on the canvas now and
+    then, every fifth nearly singular (rank 1 plus 1e-4 of the identity)."""
+    r = np.random.default_rng(seed)
+    out = []
+    for k in range(n):
+        if k % 5 == 4:
+            u, v = r.normal(size=3), r.normal(size=3)
+            out.append((np.outer(u, v) + 1e-4 * np.eye(3)).astype(np.float32))
+            continue
+        a, s = r.uniform(-0.5, 0.5), r.uniform(0.5, 2.0)
+        out.append(np.asarray([[s * np.cos(a), -s * np.sin(a), r.uniform(-300, 300)],
+                               [s * np.sin(a), s * np.cos(a), r.uniform(-80, 80)],
+                               [r.normal(0, 2e-3), r.normal(0, 2e-3), 1.0]], np.float32))
+    return out
+
+
+def _k4_shortcut_cases():
+    cases = [(name,) + K4_REGIMES[name] for name in sorted(K4_REGIMES)]
+    for seed in range(5):
+        cases += [(f"random{seed}.{k}", H, (93, 201), (131, 413))
+                  for k, H in enumerate(_k4_homographies(seed))]
+    return cases + [(f"canvas{hw}", np.asarray([[1.0, 0.0, 0.37 * hw[1]], [0.0, 1.0, -0.21],
+                                                [0.0, 0.0, 1.0]], np.float32), hw, hw)
+                    for hw in ((1, 1), (7, 33), (93, 201), (481, 2111))]
+
+
+@pytest.mark.parametrize("case", range(len(_k4_shortcut_cases())))
+def test_k4_shortcut_tiles_host_copy_is_the_kernels(dev, case):
+    """tools/warp_tiles.py's host copy of the whole-tile test (its tile
+    geometry and margin rule) decides as the kernel does, tile for tile, so
+    the CPU tests that hold the copy against the plain warp hold the
+    kernel's rule."""
+    name, H, hw, out_hw = _k4_shortcut_cases()[case]
+    Hinv = tw.homography_inverse(H)
+    got = warp_tiles.kernel_shortcut_tiles(Hinv, hw, out_hw)
+    want = warp_tiles.shortcut_tiles(Hinv, hw, out_hw)
+    assert got.shape == want.shape, name
+    assert np.array_equal(got, want), (name, int((got != want).sum()))
+
+
+@pytest.mark.parametrize("seed", range(5))
+def test_k4_random_homographies_bit_exact(rng, dev, seed):
+    img = _k4_img(rng, dev, (93, 201), 3)
+    for H in _k4_homographies(seed):
+        _k4_perspective(img, H, (131, 413))
+
+
+# canvases that do not divide into 8 x 128 tiles, and a row pitch that
+# is not a multiple of 4 pixels
+@pytest.mark.parametrize("hw", [(1, 1), (7, 33), (93, 201), (481, 2111)])
+@pytest.mark.parametrize("c", [1, 3, 4])
+def test_k4_canvas_sizes_bit_exact(rng, dev, hw, c):
+    img = _k4_img(rng, dev, hw, c)
+    shift = np.asarray([[1.0, 0.0, 0.37 * hw[1]], [0.0, 1.0, -0.21], [0.0, 0.0, 1.0]],
+                       np.float32)
+    _k4_perspective(img, shift, hw)
+    _k4_perspective(img, H_TILT, hw)
+    f = 0.9 * max(hw)
+    _k4_close(tw.warp_spherical(img, f), tw._warp_field(img, tw._SPHERICAL, f))
+    _k4_close(tw.warp_cylindrical(img, f), tw._warp_field(img, tw._CYLINDRICAL, f))
 
 
 @pytest.mark.parametrize("hw", [(93, 201), (1, 1)])
@@ -359,6 +455,44 @@ def test_k4_remap_matches_plain(rng, dev, hw, c, clamp):
     u = torch.as_tensor(rng.uniform(-3, w + 3, (h, w + 9)).astype(np.float32), device=dev)
     u[0, 0] = -float("inf")
     _k4_close(tw.remap_cols(img, u), tw._remap_cols_plain(img, u))
+
+
+# widths whose rows are not whole 4-pixel groups, and fields at an offset
+# of one float (4-byte aligned: the kernel reads them without vector loads)
+@pytest.mark.parametrize("w", [1, 5, 33, 203, 1237])
+@pytest.mark.parametrize("c", [1, 3, 4])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_k4_remap_rows_cols_unaligned(rng, dev, w, c, offset):
+    h = 37
+    img = _k4_img(rng, dev, (h, w), c)
+    buf = torch.as_tensor(rng.uniform(-3, h + 3, 2 * h * w + 1).astype(np.float32), device=dev)
+    v = buf[offset:offset + (h + 4) * w].view(h + 4, w)
+    _k4_close(tw.remap_rows(img, v), tw._remap_rows_plain(img, v))
+    ubuf = torch.as_tensor(rng.uniform(-3, w + 3, h * (w + 7) + 1).astype(np.float32),
+                           device=dev)
+    u = ubuf[offset:offset + h * (w + 7)].view(h, w + 7)
+    _k4_close(tw.remap_cols(img, u), tw._remap_cols_plain(img, u))
+
+
+@pytest.mark.parametrize("c", [1, 3, 4])
+@pytest.mark.parametrize("clamp", [False, True])
+def test_k4_remap_xy_field_at_a_4_byte_offset(rng, dev, c, clamp):
+    """A field that is contiguous but only 4-byte aligned takes two 4-byte
+    loads per pair inside the kernel; the samples are those of an aligned
+    copy and of the plain version."""
+    img = _k4_img(rng, dev, (61, 83), c)
+    n = 1001
+    pairs = np.stack([rng.uniform(-3, 86, n), rng.uniform(-3, 64, n)], -1).astype(np.float32)
+    buf = torch.zeros(2 * n + 1, device=dev)
+    buf[1:] = torch.as_tensor(pairs.ravel(), device=dev)
+    xy = buf[1:].view(n, 2)
+    assert xy.data_ptr() % 8 == 4 and xy.is_contiguous()
+    got, gv = tw.remap_xy(img, xy, fill=0.2, clamp=clamp)
+    again, av = tw.remap_xy(img, xy.clone(), fill=0.2, clamp=clamp)
+    want, wv = tw.bilinear_sample(img, xy, fill=0.2, clamp=clamp)
+    assert torch.equal(gv, wv) and torch.equal(av, wv)
+    _k4_close(got, want)
+    _k4_close(again, want)
 
 
 def test_k4_fill_against_clamp(rng, dev):

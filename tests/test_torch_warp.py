@@ -24,6 +24,7 @@ import torch
 from dr3_tpu.ops import warp as jw
 from dr3_tpu.ops.pallas import warp_pallas as wp
 from dr3_tpu_torch.ops import warp as tw
+from dr3_tpu_torch.tools import warp_tiles
 from tests.torch_parity import nn, tt
 
 VALUE_ATOL = 1e-5
@@ -103,6 +104,88 @@ def test_warp_perspective_matches(rng, H, out_hw, channels):
     got, vgot = tw.warp_perspective(tt(img), H, out_hw)
     assert tuple(got.shape) == tuple(want.shape)
     _close_with_flips(got, vgot, want, vwant)
+
+
+# The regimes of csrc/warp.cu's whole-tile shortcut, at small sizes:
+# a 48x64 view translated onto a 48x531 canvas that is mostly fill (the
+# panorama paste's geometry: 8 views 67 px apart), a homography whose
+# horizon (w = 0 of H^-1, here 1 - 0.01 j) crosses the canvas at column 100,
+# and one that maps the whole canvas outside the source
+REGIMES = {
+    "paste": (np.asarray([[1.0, 0.0, 63.37], [0.0, 1.0, 0.29], [0.0, 0.0, 1.0]], np.float32),
+              (48, 64), (48, 531)),
+    "horizon": (np.asarray([[1.0, 0.0, 0.0], [0.0, 1.0, 0.0], [0.01, 0.0, 1.0]], np.float32),
+                (93, 201), (93, 201)),
+    "outside": (np.asarray([[0.9, 0.1, 5000.0], [-0.1, 0.9, 40.0], [1e-5, 0.0, 1.0]],
+                           np.float32), (40, 57), (61, 130)),
+}
+
+
+@pytest.mark.parametrize("regime", sorted(REGIMES))
+@pytest.mark.parametrize("channels", [None, 3])
+def test_warp_perspective_regimes(rng, regime, channels):
+    H, (h, w), out_hw = REGIMES[regime]
+    img = _img(rng, h, w, channels)
+    want, vwant = jw.warp_perspective(jnp.asarray(img), jnp.asarray(H), out_hw, fill=0.4)
+    got, vgot = tw.warp_perspective(tt(img), H, out_hw, fill=0.4)
+    assert tuple(got.shape) == tuple(want.shape)
+    _close_with_flips(got, vgot, want, vwant)
+    share = nn(vgot).mean()
+    assert {"paste": 0.08 < share < 0.15, "horizon": 0.0 < share < 0.5,
+            "outside": share == 0.0}[regime]
+
+
+def _random_homographies(seed, n=10):
+    """n homographies from the source's frame onto a canvas: similarities
+    with a shift of up to 400 px and perspective terms that put a horizon
+    on the canvas now and then; every fifth nearly singular (rank 1 plus
+    1e-4 of the identity)."""
+    r = np.random.default_rng(seed)
+    out = []
+    for k in range(n):
+        if k % 5 == 4:
+            u, v = r.normal(size=3), r.normal(size=3)
+            out.append((np.outer(u, v) + 1e-4 * np.eye(3)).astype(np.float32))
+            continue
+        a, s = r.uniform(-0.5, 0.5), r.uniform(0.5, 2.0)
+        H = np.asarray([[s * np.cos(a), -s * np.sin(a), r.uniform(-400, 400)],
+                        [s * np.sin(a), s * np.cos(a), r.uniform(-100, 100)],
+                        [r.normal(0, 3e-3), r.normal(0, 3e-3), 1.0]])
+        out.append(H.astype(np.float32))
+    return out
+
+
+def _shortcut_cases():
+    cases = [(regime,) + REGIMES[regime] for regime in sorted(REGIMES)]
+    for seed in range(5):
+        cases += [(f"random{seed}.{k}", H, (40, 57), (61, 303))
+                  for k, H in enumerate(_random_homographies(seed))]
+    return cases
+
+
+@pytest.mark.parametrize("batch", range(6))
+def test_shortcut_tiles_hold_no_valid_pixel(batch):
+    """csrc/warp.cu's whole-tile rule (mirrored by tools/warp_tiles.py
+    shortcut_tiles in the kernel's float32 operations; a card test holds
+    the copy against the kernel) takes only tiles whose every pixel the
+    plain version finds outside the source: the paste's canvas mostly, the
+    tiles the horizon crosses never, an all-outside canvas wholly."""
+    cases = _shortcut_cases()
+    cases = cases[:3] if batch == 0 else cases[3 + 10 * (batch - 1):3 + 10 * batch]
+    for name, H, src_hw, out_hw in cases:
+        Hinv = tw.homography_inverse(H)
+        skip = warp_tiles.shortcut_tiles(Hinv, src_hw, out_hw)
+        _, valid = tw._warp_perspective_plain(torch.zeros(src_hw), Hinv, out_hw, 0.0)
+        ty, tx = warp_tiles.tile_of_pixels(out_hw)
+        assert skip.shape == (ty.max() + 1, tx.max() + 1), name
+        assert not nn(valid)[skip[ty, tx]].any(), name
+        if name == "paste":
+            assert skip.mean() > 0.5
+        elif name == "outside":
+            assert skip.all()
+        elif name == "horizon":
+            assert not skip[:, 0].any()                  # the view's own tile
+            assert not skip[:, tx[0, 100]].any()         # w changes sign in it
 
 
 @pytest.mark.parametrize("scale", [1e-3, 1.0, 1e3])
