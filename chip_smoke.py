@@ -94,7 +94,29 @@ Phases (any failure raises, so the exit code is non-zero):
    medians of both; host synchronisations per frame of a graph run counted
    by torch.cuda.set_sync_debug_mode: one on every replayed non-keyframe
    general frame. Where neither the port's native decoder nor PIL reads
-   PNGs, each run drives run_slam.run with the frames in memory and says so.
+   PNGs, each run drives run_slam.run with the frames in memory and says so;
+7. bal — BAL bundle adjustment (ba/snavely.py, io/bal.py, ba/lm.py,
+   run_ba.py): (a) bench.py's problem (_bench_bal_ba: 120 cameras x 60,000
+   points x 480,000 observations from np.random.default_rng(0) in its draw
+   order, plain L2, 5 LM iterations): auto routes to zexplicit, the cost at
+   the true parameters and the initial cost within 1e-4 of the JAX
+   package's, zexplicit accepts 5 of 5 and ends within 1e-3 of JAX's
+   97,681.25 and at or below the true parameters' cost, pcg (cg_tol 1e-5,
+   q_eta 0) within 1e-4 of zexplicit, two zexplicit runs bit-equal; bench.py's
+   ba_bal_lm_iters_per_sec for zexplicit and pcg (its default forcing, with
+   the CG iterations), the peak device memory, and one zexplicit LM
+   iteration's device time split by stage (tools/ba_time.bal_stage_split);
+   (b) the card against the CPU (same accepted steps, costs within 1e-4,
+   cameras and the points seen twice within 1e-3 of their scale): pcg at 16
+   x 8,000 x 800 per camera, zexplicit at 16 x 8,000 x 1,600 (at 800 per
+   camera it is printed: 40% of the points have one observation, see
+   PERF.md); (c) phase 4's MonoVO exported to a BAL file
+   (tools/make_real_bal.export_bal) and run through ``run_ba.main`` for
+   zexplicit, pcg and the pinhole model with intrinsics: the cost falls,
+   ``--out`` reloads with the same counts, zexplicit within 1e-3 of pcg
+   through the library (cg_tol 1e-5, q_eta 0); (d) ``least_squares`` on
+   Powell's function (cost below 1e-8) and the plain and robust curve fits
+   of tests/test_lm_bal.py, within 1e-4 of the port's CPU results.
 
 The kernel table (launches per general frame or per panorama, device us,
 bound, share of bound, library us) is printed before the last three
@@ -159,6 +181,14 @@ PAN_N, PAN_W, PAN_H, PAN_F, PAN_YAW, PAN_FEATHER = 8, 640, 480, 600.0, 0.35, 40
 # 90 degrees from view 0; at 0.15 the chained homographies hold their
 # corners within 2.69 px over 4 texture seeds (PERF.md), gated at 3 px
 HOMO_N, HOMO_YAW = 4, 0.15
+# phase 7: bench.py's BAL problem (_bench_bal_ba: cameras, points, observations
+# per camera) and the card-vs-CPU shapes; the anchors are the JAX package's on
+# the CPU (highest matmul precision, bench.py's draws): at bench.py's shape
+# the cost at the true parameters, the initial cost, zexplicit's after 5 LM
+# iterations
+BAL_FULL, BAL_SMALL, BAL_OVERLAP = (120, 60000, 4000), (16, 8000, 800), (16, 8000, 1600)
+BAL_TRUE_COST, BAL_INITIAL_COST, BAL_JAX_FINAL = 120035.73, 2978184.0, 97681.25
+BAL_SMALL_JAX_ZEXPLICIT = 601.6403          # zexplicit's 5 iterations at BAL_SMALL
 DEV = "cuda"
 # the kernels' names in a profile: kernel or K4 form -> its __global__
 KERNEL_NAMES = {"lk_pyramid": "lk_pyramid_kernel", "lk_align": "lk_align_kernel",
@@ -722,7 +752,8 @@ def phase_slice(card, frames, gt, profiled):
         f"{plain_med:.2f} ms median; medians over its replayed frames: upload and "
         f"conversion {up:.2f} ms, frame_step (copies in, replay, clones, the read) "
         f"{step:.2f} ms, the rest of the driver {rest:.2f} ms ({card})")
-    run = dict(frame_s=frame_s, stats=list(vo.stats[:len(frames)]), positions=positions)
+    run = dict(frame_s=frame_s, stats=list(vo.stats[:len(frames)]), positions=positions,
+               vo=vo)
     return launches, n_general, window, n_entries, run
 
 
@@ -1456,6 +1487,181 @@ def phase_cli(card, frames, gt, slice_run):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+def phase_bal(card, vo):
+    """Phase 7: BAL bundle adjustment (module docstring)."""
+    from dr3_tpu_torch import run_ba
+    from dr3_tpu_torch.ba import snavely as sn
+    from dr3_tpu_torch.ba.lm import least_squares
+    from dr3_tpu_torch.io.bal import load_bal
+    from dr3_tpu_torch.tools.ba_time import bal_case, bal_lm_rate, bal_stage_split
+    from dr3_tpu_torch.tools.make_real_bal import export_bal
+
+    t_phase = time.perf_counter()
+    L2 = 1e9                       # bench.py's huber_delta: plain least squares
+
+    def rel(a, b):
+        return abs(a - b) / abs(b)
+
+    # (a) bench.py's problem at full width
+    d, d_true = bal_case(*BAL_FULL)
+    prob = sn.bal_to_snavely(d, device=DEV)
+    K, P, O = prob.n_cams, prob.n_points, prob.n_obs
+    method, _ = sn._pick_method(prob, "auto")
+    if method != "zexplicit":
+        raise AssertionError(f"auto routes {K} x {P} x {O} to {method}")
+    c_true = float(sn.residual_cost(sn.bal_to_snavely(d_true, device=DEV), L2))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    r_auto = sn.bundle_adjust_snavely(prob, 5, huber_delta=L2)
+    c0, c_auto, n_acc = float(r_auto.initial_cost), float(r_auto.final_cost), int(r_auto.n_accepted)
+    first_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[bal] (a) {K} cameras x {P} points x {O} observations, auto -> {method}: cost at "
+        f"the true parameters {c_true:.2f} (JAX on the CPU {BAL_TRUE_COST}), initial "
+        f"{c0:.2f} ({BAL_INITIAL_COST}), final {c_auto:.2f} ({BAL_JAX_FINAL}), {n_acc}/5 "
+        f"accepted; first run {first_s:.3f} s; peak device memory {peak / 2**30:.3f} GiB "
+        f"({(peak - mem0) / 2**30:.3f} GiB above the problem's) ({card})")
+    if not rel(c_true, BAL_TRUE_COST) <= 1e-4:
+        raise AssertionError(f"cost at the true parameters {c_true} vs {BAL_TRUE_COST}")
+    if not rel(c0, BAL_INITIAL_COST) <= 1e-4:
+        raise AssertionError(f"initial cost {c0} vs {BAL_INITIAL_COST}")
+    if n_acc != 5 or not rel(c_auto, BAL_JAX_FINAL) <= 1e-3 or not c_auto <= c_true:
+        raise AssertionError(f"zexplicit: {n_acc}/5 accepted, final {c_auto} (JAX "
+                             f"{BAL_JAX_FINAL}, true parameters {c_true})")
+    r_z = sn.bundle_adjust_snavely(prob, 5, huber_delta=L2, solver="zexplicit")
+    same = [k for k in sn._PARAMS if torch.equal(getattr(r_z.problem, k),
+                                                  getattr(r_auto.problem, k))]
+    if float(r_z.final_cost) != c_auto or len(same) != len(sn._PARAMS):
+        raise AssertionError(f"zexplicit repeats differ: {float(r_z.final_cost)} vs {c_auto}, "
+                             f"bit-equal fields {same}")
+    r_p = sn.bundle_adjust_snavely(prob, 5, huber_delta=L2, solver="pcg", cg_tol=1e-5, q_eta=0.0)
+    c_p = float(r_p.final_cost)
+    log(f"[bal] (a) zexplicit twice: final cost and every parameter bit-equal; pcg (cg_tol "
+        f"1e-5, q_eta 0) final {c_p:.2f} ({int(r_p.n_accepted)}/5 accepted, {r_p.cg_iters} CG "
+        f"iterations), {rel(c_p, c_auto):.3e} from zexplicit")
+    if not rel(c_p, c_auto) <= 1e-4:
+        raise AssertionError(f"pcg {c_p} vs zexplicit {c_auto}")
+
+    z_rate, _ = bal_lm_rate(prob)
+    p_rate, p_cg = bal_lm_rate(prob, solver="pcg")
+    log(f"[bal] (a) ba_bal_lm_iters_per_sec: zexplicit {z_rate:.3f}, pcg (cg_tol 1e-2, q_eta "
+        f"0.1) {p_rate:.3f} with {p_cg:.1f} CG iterations a run of 5 ({card})")
+    split = bal_stage_split(prob)
+    for name, (ms, n) in split.items():
+        log(f"[bal] split of one zexplicit LM iteration: {name}: {ms:.3f} ms device, {n} "
+            f"kernels ({card})")
+    whole = split["whole iteration"][0]
+    log(f"[bal] one zexplicit LM iteration: {whole:.3f} ms of device time against "
+        f"{1e3 / z_rate:.3f} ms of wall in the rate above: the device is busy "
+        f"{100 * whole * z_rate / 1e3:.1f}% of it")
+    del prob, r_auto, r_z, r_p
+
+    # (b) the card against the CPU at smaller shapes. At BAL_SMALL 3,200 of
+    # the 8,000 points have one observation (no depth): there zexplicit's
+    # float32 reduced system is ill-conditioned, and the JAX package's own
+    # CPU result and the port's differ by 8.9e-4 (PERF.md), so its costs are
+    # printed there and gated at BAL_OVERLAP, where each camera's run of
+    # points overlaps its neighbours'. Parameters are compared over the
+    # cameras and the points seen at least twice.
+    for shape, solver, gated in ((BAL_SMALL, "pcg", True), (BAL_SMALL, "zexplicit", False),
+                                 (BAL_OVERLAP, "zexplicit", True)):
+        d, _ = bal_case(*shape)
+        kw = dict(cg_tol=1e-5, q_eta=0.0) if solver == "pcg" else {}
+        rc = sn.bundle_adjust_snavely(sn.bal_to_snavely(d, device=DEV), 5, huber_delta=L2,
+                                      solver=solver, **kw)
+        rh = sn.bundle_adjust_snavely(sn.bal_to_snavely(d, device="cpu"), 5, huber_delta=L2,
+                                      solver=solver, **kw)
+        seen = torch.as_tensor(np.bincount(d.obs_pt, minlength=shape[1]) >= 2)
+
+        def gap(k):
+            a, b = getattr(rc.problem, k).cpu(), getattr(rh.problem, k)
+            if k == "points":
+                a, b = a[seen], b[seen]
+            return float((a - b).abs().max() / b.abs().max())
+
+        err = {k: gap(k) for k in sn._PARAMS}
+        cc, ch = float(rc.final_cost), float(rh.final_cost)
+        log(f"[bal] (b) {shape[0]} x {shape[1]} x {shape[0] * shape[2]} ({int(seen.sum())} "
+            f"points seen twice or more), {solver}: card {cc:.4f} ({int(rc.n_accepted)}/5), "
+            f"CPU {ch:.4f} ({int(rh.n_accepted)}/5), {rel(cc, ch):.3e} apart; parameters "
+            + ", ".join(f"{k} {v:.2e}" for k, v in err.items()) + " of their scale"
+            + ("" if gated else f"; not gated (JAX on the CPU: {BAL_SMALL_JAX_ZEXPLICIT})"))
+        if int(rc.n_accepted) != int(rh.n_accepted):
+            raise AssertionError(f"card and CPU accept different steps in {solver}")
+        if gated and (not rel(cc, ch) <= 1e-4 or max(err.values()) > 1e-3):
+            raise AssertionError(f"card and CPU differ in {solver} at {shape}")
+
+    # (c) real structure: phase 4's MonoVO exported, through the CLI
+    tmp = tempfile.mkdtemp(prefix="dr3_bal_")
+    try:
+        path = os.path.join(tmp, "real.bal")
+        exported = export_bal(vo, path)
+        counts = [a.shape for a in exported]
+        log(f"[bal] (c) phase 4's map exported: {counts[0][0]} cameras, {counts[1][0]} "
+            f"points, {counts[2][0]} observations")
+        costs = {}
+        for label, extra in (("zexplicit", ["--solver", "zexplicit"]),
+                             ("pcg", ["--solver", "pcg"]),
+                             ("pinhole", ["--model", "pinhole", "--optimize-intrinsics"])):
+            out_path = os.path.join(tmp, f"{label}.bal")
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rc = run_ba.main([path, "--iters", "10", *extra, "--out", out_path,
+                                  "--device", DEV])
+            for line in buf.getvalue().splitlines():
+                log(f"[bal] (c) {label}: {line}")
+            line = next(ln for ln in buf.getvalue().splitlines() if ln.startswith("cost:"))
+            c_in, c_out = float(line.split()[1]), float(line.split()[3])
+            costs[label] = c_out
+            if rc != 0 or not c_out < c_in:
+                raise AssertionError(f"run_ba {label}: rc {rc}, cost {c_in} -> {c_out}")
+            if [a.shape for a in load_bal(out_path)] != counts:
+                raise AssertionError(f"run_ba {label}: --out does not reload with the counts")
+        r_lib = sn.bundle_adjust_snavely(sn.bal_to_snavely(load_bal(path), device=DEV), 10,
+                                         huber_delta=L2, solver="pcg", cg_tol=1e-5, q_eta=0.0)
+        c_lib = float(r_lib.final_cost)
+        log(f"[bal] (c) pcg through the library (cg_tol 1e-5, q_eta 0) {c_lib:.6g}: "
+            f"{rel(costs['zexplicit'], c_lib):.3e} from the CLI's zexplicit")
+        if not rel(costs["zexplicit"], c_lib) <= 1e-3:
+            raise AssertionError(f"zexplicit {costs['zexplicit']} vs pcg {c_lib}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # (d) the generic LM on the reference's Ceres exercises, card vs CPU
+    def powell(x):
+        return torch.stack([x[0] + 10.0 * x[1], 5.0 ** 0.5 * (x[2] - x[3]),
+                            (x[1] - 2.0 * x[2]) ** 2, 10.0 ** 0.5 * (x[0] - x[3]) ** 2])
+
+    x0 = [3.0, -1.0, 0.0, 1.0]
+    pw = least_squares(powell, torch.tensor(x0, device=DEV), max_iters=60)
+    pw_cpu = least_squares(powell, torch.tensor(x0), max_iters=60)
+    log(f"[bal] (d) Powell: cost {float(pw.final_cost):.3e} on the card, "
+        f"{float(pw_cpu.final_cost):.3e} on the CPU, {int(pw.n_accepted)} accepted")
+    if not float(pw.final_cost) < 1e-8:
+        raise AssertionError(f"Powell's cost {float(pw.final_cost)}")
+    rng = np.random.default_rng(SEED)
+    xs = np.linspace(0.0, 5.0, 67).astype(np.float32)
+    for delta, frac in ((None, 0.0), (0.05, 0.15)):
+        ys = np.exp(0.3 * xs + 0.1) + rng.normal(0, 0.01, xs.size).astype(np.float32)
+        k = int(frac * xs.size)
+        if k:
+            ys[rng.choice(xs.size, k, replace=False)] += rng.uniform(1.5, 3.0, k).astype(np.float32)
+        fit = {}
+        for dev in (DEV, "cpu"):
+            xt, yt = torch.as_tensor(xs, device=dev), torch.as_tensor(ys, device=dev)
+            fit[dev] = least_squares(lambda p: torch.exp(p[0] * xt + p[1]) - yt,
+                                     torch.zeros(2, device=dev), max_iters=40,
+                                     huber_delta=delta).x.cpu()
+        gap = float((fit[DEV] - fit["cpu"]).abs().max())
+        log(f"[bal] (d) curve fit (Huber {delta}, {frac:.0%} outliers): (m, c) "
+            f"{fit[DEV].tolist()} on the card, {gap:.2e} from the CPU")
+        if not gap <= 1e-4:
+            raise AssertionError(f"curve fit {delta}: card and CPU {gap} apart")
+    log(f"[bal] phase 7: {time.perf_counter() - t_phase:.1f} s")
+
+
 def print_table(rows, per, in_path, card):
     """The kernel table: launches on its path's run per general frame (VO)
     or per panorama (K4); device us per launch at the row's shape (100
@@ -1500,6 +1706,7 @@ def main():
                                                                                      pano_cases)
     phase_cpu_panorama()
     phase_cli(card, frames[:N_FRAMES], gt[:N_FRAMES], slice_run)
+    phase_bal(card, slice_run.pop("vo"))
 
     # dr3_remap and dr3_warp each replace both TPU warp kernels: the
     # Catmull-Smith passes K4a and K4b compose into one direct sampler

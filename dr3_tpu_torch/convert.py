@@ -7,7 +7,8 @@ and these functions rebuild the port's tensors from that, so both packages
 can compute the same step from the same state. This module never imports
 jax or dr3_tpu.
 
-A ``MonoVO`` snapshot is a dict with the keys
+A BAL problem crosses as its fields (:func:`snavely_problem`; back with
+:func:`to_numpy`). A ``MonoVO`` snapshot is a dict with the keys
   stage (int, Stage value), frame_idx, kf_count, point_cursor,
   last_kf_tracked, lost_count, n_relocalizations (ints);
   T_cur, T_anchor ((wxyz, t) pairs);
@@ -93,6 +94,14 @@ def ba_problem(d: Mapping, device="cpu") -> BAProblem:
     vals = {k: (None if d.get(k) is None else tensor(d[k], device, k))
             for k in BAProblem._fields}
     return BAProblem(**vals)
+
+
+def snavely_problem(d: Mapping, device="cpu"):
+    """{field: numpy} of a SnavelyProblem -> the port's; the reverse is
+    :func:`to_numpy`."""
+    from dr3_tpu_torch.ba.snavely import SnavelyProblem
+
+    return _fields(SnavelyProblem, d, device)
 
 
 def monovo(snapshot: Mapping, cam: Pinhole, cfg, device="cpu", seed: int = 0):

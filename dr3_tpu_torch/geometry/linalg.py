@@ -72,6 +72,21 @@ def smallest_eigvec_gram(A: torch.Tensor, iters: int = 10) -> torch.Tensor:
     return v
 
 
+def solve_psd(A: torch.Tensor, b: torch.Tensor, damping: float = 0.0) -> torch.Tensor:
+    """Solve (A + damping I) x = b for symmetric PSD A via Cholesky; b is
+    [..., n] or [..., n, m]. A failed factorisation gives NaN, as
+    ``jnp.linalg.cholesky`` does, instead of raising (no host read)."""
+    n = A.shape[-1]
+    if damping:
+        A = A + damping * torch.eye(n, dtype=A.dtype, device=A.device)
+    L, info = torch.linalg.cholesky_ex(A)
+    L = torch.where((info == 0)[..., None, None], L, torch.full_like(L, float("nan")))
+    vec = b.ndim == A.ndim - 1
+    y = torch.linalg.solve_triangular(L, b[..., None] if vec else b, upper=False)
+    x = torch.linalg.solve_triangular(L.transpose(-1, -2), y, upper=True)
+    return x[..., 0] if vec else x
+
+
 def chol3(m: torch.Tensor) -> torch.Tensor:
     """Batched closed-form lower-Cholesky factor of SPD [..., 3, 3] blocks
     (sqrt arguments floored so a degenerate block stays finite)."""

@@ -2,7 +2,8 @@
 dr3_tpu.ops.pyramid; reference src/utils.cpp:323-430).
 
 Levels have static shapes (H/2^l, W/2^l); odd trailing rows/cols are
-dropped like the reference.
+dropped like the reference. ``gaussian_blur3`` is the optional [1 2 1]/4
+pre-smoothing.
 """
 
 from __future__ import annotations
@@ -27,3 +28,17 @@ def build_pyramid(img: torch.Tensor, n_levels: int) -> List[torch.Tensor]:
     for _ in range(1, n_levels):
         pyr.append(half_sample(pyr[-1]))
     return pyr
+
+
+def gaussian_blur3(img: torch.Tensor) -> torch.Tensor:
+    """Separable [1 2 1]/4 blur over the last two axes, borders replicated:
+    an edge pixel's missing neighbour is itself, so the edge value is
+    0.75 x edge + 0.25 x its inner neighbour (as the JAX package writes it
+    over its wrapped roll)."""
+    def conv1d(x, dim):
+        out = 0.25 * torch.roll(x, 1, dims=dim) + 0.5 * x + 0.25 * torch.roll(x, -1, dims=dim)
+        out.select(dim, 0).copy_(0.75 * x.select(dim, 0) + 0.25 * x.select(dim, 1))
+        out.select(dim, -1).copy_(0.75 * x.select(dim, -1) + 0.25 * x.select(dim, -2))
+        return out
+
+    return conv1d(conv1d(img, -1), -2)

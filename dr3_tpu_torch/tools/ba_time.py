@@ -15,7 +15,14 @@ port has: ``bundle_adjust`` by keyword, ``pose_only_adjust``,
 * pose_only_adjust on one frame's 546 matches (the pose_optimizer's GN);
 * with ``--vo``: MonoVO over 40 rendered 1240x376 frames with
   Config(loop_closure=False) (every checkout runs it): the Monitor's
-  local_BA and pose_optimizer averages and the CG iterations.
+  local_BA and pose_optimizer averages and the CG iterations;
+* with ``--bal``: bench.py's BAL problem (120 cameras x 60,000 points x
+  480,000 observations, :func:`bal_case`) through ``bal_to_snavely`` and
+  ``bundle_adjust_snavely``: bench.py's ba_bal_lm_iters_per_sec for auto
+  (zexplicit) and pcg (its default forcing, with the CG iterations), peak
+  device memory, and the device time of each stage of one zexplicit LM
+  iteration (:func:`bal_stage_split`, where the checkout has the stage
+  helpers). ``--bal-only`` skips the window and VO timings.
 
 Prints one JSON object (and writes it to ``--out``). Wall times include
 the host: the CG loop reads one flag per iteration.
@@ -76,6 +83,110 @@ def window_case(seed: int = 0, n_cams: int = 32, n_slots: int = 546,
                 cam_fixed=fixed, dist=None)
 
 
+def bal_case(n_cams: int = 120, n_pts: int = 60000, per_cam: int = 4000, seed: int = 0):
+    """(perturbed, true) BALData of bench.py's BAL-scale problem
+    (``_bench_bal_ba``, bench.py:171-203), drawn from
+    ``np.random.default_rng(seed)`` in its order: points in a slab at
+    depth 15-30 down -z, cameras 1000 px along x, each seeing a contiguous
+    run of ``per_cam`` points, pixel noise 0.5, points perturbed by 0.05."""
+    from dr3_tpu_torch.io.bal import BALData
+
+    rng = np.random.default_rng(seed)
+    pts = np.stack([rng.uniform(-10, 10, n_pts), rng.uniform(-6, 6, n_pts),
+                    rng.uniform(-30, -15, n_pts)], 1)
+    cam = np.zeros((n_cams, 9))
+    cam[:, 3] = np.linspace(-8, 8, n_cams)
+    cam[:, 6] = 1000.0
+    oc = np.repeat(np.arange(n_cams), per_cam).astype(np.int32)
+    op = np.concatenate([
+        np.arange(int(k * (n_pts - per_cam) / (n_cams - 1)),
+                  int(k * (n_pts - per_cam) / (n_cams - 1)) + per_cam)
+        for k in range(n_cams)]).astype(np.int32)
+    pc = pts[op] + cam[oc, 3:6]
+    uv = -1000.0 * pc[:, :2] / pc[:, 2:3] + rng.normal(0, 0.5, (len(oc), 2))
+    return (BALData(cam, pts + rng.normal(0, 0.05, pts.shape), oc, op, uv),
+            BALData(cam, pts, oc, op, uv))
+
+
+def bal_stage_split(prob, windows: int = 3) -> dict:
+    """{stage: (device ms, kernels)} of one zexplicit LM iteration of the
+    Snavely problem ``prob`` (lambda 1e-3, plain L2), in one torch.profiler
+    window: each stage runs inside a ``record_function`` range, which the
+    profiler also records on the device timeline, and is charged the device
+    time of the kernels, copies and fills that ran inside that range;
+    "whole iteration" is every such device event of the window. The
+    profiler now and then drops a window's events, so the window is taken
+    ``windows`` times and the one with the most device events is kept.
+    Uses this checkout's stage helpers of ba/snavely.py."""
+    import torch.profiler as tp
+
+    from dr3_tpu_torch.ba import snavely as sn
+    from dr3_tpu_torch.ba.schur_core import _camera_reducer, _table_reducer, cam_onehot_matrix
+
+    K, P = prob.n_cams, prob.n_points
+    E = cam_onehot_matrix(prob.obs_cam, K)
+    by_pt = _table_reducer(prob.obs_pt.long(), P)
+    lam = torch.tensor(1e-3, device=prob.cam_t.device)
+    best = sn.residual_cost(prob, 1e9)
+    names = ("assembly", "Z build", "Z^T Z", "Cholesky", "back-substitution", "accept test")
+
+    def iteration():
+        with tp.record_function("assembly"):
+            blocks, _ = sn._assemble_direct(prob, E, 1e9, by_pt)
+            by_cam, to_obs = _camera_reducer(blocks.obs_cam, K, E)
+        with tp.record_function("Z build"):
+            Hcc_d, Hinv9 = sn._damp_blocks(blocks, lam)
+            Z = sn._z_factor(blocks, Hinv9)
+        with tp.record_function("Z^T Z"):
+            S, dinv = sn._reduced_camera_matrix(Z, Hcc_d)
+            del Z
+        with tp.record_function("Cholesky"):
+            dc = sn._camera_step(S, sn._reduced_rhs(blocks, Hinv9, by_cam), dinv,
+                                 prob.cam_fixed)
+        with tp.record_function("back-substitution"):
+            dp = sn._back_substitute(blocks, dc, prob.cam_fixed, Hinv9, to_obs, by_pt)
+        with tp.record_function("accept test"):
+            return sn._accept_step(prob, dc, dp, lam, best, 1e9)
+
+    iteration()                                  # warm
+    taken = None
+    for _ in range(windows):
+        torch.cuda.synchronize()
+        with tp.profile(activities=[tp.ProfilerActivity.CPU, tp.ProfilerActivity.CUDA]) as prof:
+            iteration()
+            torch.cuda.synchronize()
+        on_device = [e for e in prof.events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA]
+        ranges = {e.name: e.time_range for e in on_device if e.name in names}
+        work = [e.time_range for e in on_device if e.name not in names]
+        split = {}
+        for name in names:
+            r = ranges.get(name)
+            inside = [w for w in work if r is not None and r.start <= w.start and w.end <= r.end]
+            split[name] = (1e-3 * sum(w.elapsed_us() for w in inside), len(inside))
+        split["sum of the stages"] = (sum(ms for ms, _ in split.values()),
+                                      sum(n for _, n in split.values()))
+        split["whole iteration"] = (1e-3 * sum(w.elapsed_us() for w in work), len(work))
+        if taken is None or split["whole iteration"][1] > taken["whole iteration"][1]:
+            taken = split
+    return taken
+
+
+def bal_lm_rate(prob, reps: int = 3, iters: int = 5, **kw):
+    """bench.py's ba_bal_lm_iters_per_sec on ``prob``: a warm-up run, then
+    ``reps`` runs of ``iters`` LM iterations (plain L2), each closed by a
+    host read; (LM iterations/s, CG iterations a run)."""
+    from dr3_tpu_torch.ba.snavely import bundle_adjust_snavely
+
+    float(bundle_adjust_snavely(prob, iters, huber_delta=1e9, **kw).final_cost)
+    t0, cg = time.perf_counter(), 0
+    for _ in range(reps):
+        r = bundle_adjust_snavely(prob, iters, huber_delta=1e9, **kw)
+        float(r.final_cost)
+        cg += r.cg_iters
+    return reps * iters / (time.perf_counter() - t0), cg / reps
+
+
 def wall_ms(fn, reps: int = 5):
     """Median host wall ms of fn() over ``reps`` calls after one warm-up,
     each closed by a synchronize; and fn()'s last result."""
@@ -105,20 +216,30 @@ def vo_run(frames, cam):
             "cg_iters": vo.n_cg_iters, "window_ba": vo.n_window_ba}
 
 
-def main():
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--vo", action="store_true", help="also time the VO slice's local_BA")
-    ap.add_argument("--out", default=None, help="also write the JSON here")
-    args = ap.parse_args()
-    if not torch.cuda.is_available():
-        raise SystemExit("ba_time: needs a CUDA device")
-    import dr3_tpu_torch
+def bal_times() -> dict:
+    from dr3_tpu_torch.ba.snavely import bal_to_snavely, bundle_adjust_snavely
+
+    prob = bal_to_snavely(bal_case()[0], device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    r = bundle_adjust_snavely(prob, 5, huber_delta=1e9)
+    out = {"shape": [prob.n_cams, prob.n_points, prob.n_obs],
+           "final_cost": float(r.final_cost), "n_accepted": int(r.n_accepted),
+           "peak_bytes": torch.cuda.max_memory_allocated()}
+    out["zexplicit_lm_iters_per_sec"], _ = bal_lm_rate(prob)
+    out["pcg_lm_iters_per_sec"], out["pcg_cg_iters_per_run"] = bal_lm_rate(prob, solver="pcg")
+    try:
+        out["split_ms_kernels"] = bal_stage_split(prob)
+    except AttributeError as e:          # a checkout without the stage helpers
+        out["split_ms_kernels"] = f"not measured: {e}"
+    return out
+
+
+def window_times(vo: bool) -> dict:
     from dr3_tpu_torch import convert
     from dr3_tpu_torch.ba.schur_lm import bundle_adjust, pose_only_adjust
 
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                          capture_output=True, text=True, check=True).stdout.strip()
-    out = {"package": dr3_tpu_torch.__file__, "card": card}
+    out = {}
     prob = convert.ba_problem(window_case(), device="cuda")
     vo_kw = dict(huber_delta=5.0, lambda0=1e-3, cg_iters=64, cg_tol=1e-2, q_eta=0.1)
     ms, res = wall_ms(lambda: bundle_adjust(prob, max_iters=8, solver="pcg", **vo_kw))
@@ -144,7 +265,7 @@ def main():
     frame = convert.ba_problem(window_case(n_cams=1), device="cuda")
     frame = frame._replace(cam_fixed=torch.zeros_like(frame.cam_fixed))
     out["pose_only_ms"], _ = wall_ms(lambda: pose_only_adjust(frame, 10, 5.0), reps=20)
-    if args.vo:
+    if vo:
         from dr3_tpu_torch.models.camera import Pinhole
         from dr3_tpu_torch.utils.synth import lateral_path, make_textures, render_scene
 
@@ -152,6 +273,27 @@ def main():
         tn, tf = make_textures(np.random.default_rng(0), size=2000)
         poses, _ = lateral_path(40, 0.08)
         out["vo"] = vo_run([render_scene(cam, T, tn, tf) for T in poses], cam)
+    return out
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--vo", action="store_true", help="also time the VO slice's local_BA")
+    ap.add_argument("--bal", action="store_true", help="also time BAL-scale Snavely LM")
+    ap.add_argument("--bal-only", action="store_true", help="time only the BAL LM")
+    ap.add_argument("--out", default=None, help="also write the JSON here")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("ba_time: needs a CUDA device")
+    import dr3_tpu_torch
+
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.strip()
+    out = {"package": dr3_tpu_torch.__file__, "card": card}
+    if args.bal or args.bal_only:
+        out["bal"] = bal_times()
+    if not args.bal_only:
+        out.update(window_times(args.vo))
     line = json.dumps(out)
     print(line)
     if args.out:

@@ -1,7 +1,8 @@
 """Synthetic two-plane scene with exact ground truth, numpy only.
 
 A copy of the renderer pieces of the repository's test fixtures
-(tests/synth.py: ``make_textures``, ``NpSE3``, ``render_scene``) that
+(tests/synth.py: ``make_textures``, ``NpSE3``, ``render_scene``, and the
+forward corridor ``corridor_path`` / ``render_corridor``) that
 imports neither jax nor dr3_tpu, so the port's smoke run and benchmarks can
 render frames on a machine without JAX: a near textured plane inside a far
 background plane, by ray-plane intersection + bilinear texture lookup (two
@@ -189,3 +190,103 @@ def sphere_homography(fx: float, fy: float, cx: float, cy: float, yaw: float) ->
     into pixels of the view at yaw 0 (float64)."""
     K = np.array([[fx, 0.0, cx], [0.0, fy, cy], [0.0, 0.0, 1.0]])
     return K @ _yaw_matrix(yaw) @ np.linalg.inv(K)
+
+
+def _bilinear_periodic(tex, u, v):
+    """Periodic (tiled) bilinear texture lookup."""
+    th, tw = tex.shape
+    x = np.mod(u, tw - 1.001).astype(np.float32)
+    y = np.mod(v, th - 1.001).astype(np.float32)
+    x0 = x.astype(np.int32)
+    y0 = y.astype(np.int32)
+    ax = x - x0
+    ay = y - y0
+    v00 = tex[y0, x0]
+    v01 = tex[y0, x0 + 1]
+    v10 = tex[y0 + 1, x0]
+    v11 = tex[y0 + 1, x0 + 1]
+    return ((1 - ay) * ((1 - ax) * v00 + ax * v01)
+            + ay * ((1 - ax) * v10 + ax * v11))
+
+
+def render_corridor(cam, T, tex_ground, tex_wall, ground_y=1.5, wall_x=4.0,
+                    px_per_unit=50.0):
+    """Render an ENDLESS corridor scene: textured ground plane (y=ground_y,
+    +y is down) and two textured side walls (x=±wall_x), tiled periodically
+    along the driving direction (+z); rays above the horizon hit a
+    featureless sky. Unlike the two-plane lateral scene (render_scene),
+    this supports unbounded FORWARD motion with turns — the KITTI-like
+    regime where parallax vanishes near the focus of expansion (the
+    reference's demonstrated use case, reference README.md:4-5)."""
+    h, w = cam.height, cam.width
+    fx, fy = float(cam.fx), float(cam.fy)
+    cx, cy = float(cam.cx), float(cam.cy)
+    ys, xs = np.mgrid[0:h, 0:w].astype(np.float32)
+    R_wc = T.R.astype(np.float32)
+    t_wc = T.t.astype(np.float32)
+    R = R_wc.T
+    t = -R_wc.T @ t_wc
+    d_cam = np.stack([(xs - cx) / fx, (ys - cy) / fy, np.ones_like(xs)], -1)
+    d_w = d_cam @ R.T
+
+    INF = np.float32(1e9)
+
+    def plane(axis, value):
+        denom = d_w[..., axis]
+        lam = (value - t[axis]) / np.where(np.abs(denom) < 1e-9, 1e-9, denom)
+        return np.where(lam > 1e-3, lam, INF).astype(np.float32)
+
+    lams = np.stack([plane(1, ground_y), plane(0, -wall_x),
+                     plane(0, wall_x)])
+    choice = np.argmin(lams, 0)
+    lam = np.min(lams, 0)
+    pw = t.astype(np.float32) + lam[..., None] * d_w.astype(np.float32)
+
+    img_g = _bilinear_periodic(tex_ground, pw[..., 0] * px_per_unit,
+                               pw[..., 2] * px_per_unit)
+    # walls keyed by (z, y); the left wall samples a half-texture offset so
+    # the two walls never alias in place recognition
+    off = tex_wall.shape[1] / 2.0
+    img_l = _bilinear_periodic(tex_wall, pw[..., 2] * px_per_unit + off,
+                               pw[..., 1] * px_per_unit)
+    img_r = _bilinear_periodic(tex_wall, pw[..., 2] * px_per_unit,
+                               pw[..., 1] * px_per_unit)
+    img = np.where(choice == 0, img_g, np.where(choice == 1, img_l, img_r))
+    img = np.where(lam >= INF, np.float32(0.5), img)  # featureless sky
+    return img.astype(np.float32)
+
+
+def corridor_path(n_frames, step=0.10, curve_amp=0.22, period=240,
+                  rot_only_at=0.45, rot_only_len=12, rot_rate=0.02):
+    """Forward-dominant ground-truth path down the corridor: S-curve
+    heading (yaw = curve_amp*sin(2*pi*i/period), turns up to ~±13 deg) plus
+    one ROTATION-ONLY stress segment (position frozen, yaw sweeps
+    +rot_rate/frame for rot_only_len frames then back — zero net heading,
+    zero parallax while it lasts). Returns (NpSE3 world->cam poses [n],
+    centers [n, 3])."""
+    poses, centers = [], []
+    pos = np.zeros(3, np.float64)
+    s0 = int(rot_only_at * n_frames)
+    s1 = s0 + rot_only_len
+    s2 = s1 + rot_only_len
+    extra = 0.0
+    for i in range(n_frames):
+        base_yaw = curve_amp * np.sin(2.0 * np.pi * i / period)
+        if s0 <= i < s1:
+            extra += rot_rate
+            advance = 0.0
+        elif s1 <= i < s2:
+            extra -= rot_rate
+            advance = 0.0
+        else:
+            advance = step
+        yaw = base_yaw + extra
+        d = np.array([np.sin(yaw), 0.0, np.cos(yaw)])
+        pos = pos + advance * d
+        # cam->world = Ry(yaw); world->cam pose (R_wc, t_wc = -R_wc @ c)
+        c, s = np.cos(yaw), np.sin(yaw)
+        R_cw = np.array([[c, 0.0, s], [0.0, 1.0, 0.0], [-s, 0.0, c]])
+        R_wc = R_cw.T
+        poses.append(NpSE3(R_wc, -R_wc @ pos))
+        centers.append(pos.copy())
+    return poses, np.asarray(centers, np.float32)

@@ -581,6 +581,94 @@ def test_bundle_adjust_card_matches_cpu(dev, solver):
     torch.testing.assert_close(g.problem.cam_t.cpu(), c.problem.cam_t, rtol=0.0, atol=2e-3)
 
 
+def _bal_problem(dev, padded=False):
+    """bench.py's BAL generator at 24 x 6000 x 800 per camera; ``padded``
+    appends every observation again as a zero-weight row (clamped ids that
+    collide with the live ones in the Z scatter)."""
+    from dr3_tpu_torch.ba.snavely import bal_to_snavely
+    from dr3_tpu_torch.tools.ba_time import bal_case
+
+    p = bal_to_snavely(bal_case(24, 6000, 800)[0], device=dev)
+    if padded:
+        twice = lambda a: torch.cat([a, a])  # noqa: E731
+        p = p._replace(obs_cam=twice(p.obs_cam), obs_pt=twice(p.obs_pt),
+                       obs_uv=twice(p.obs_uv),
+                       obs_w=torch.cat([p.obs_w, torch.zeros_like(p.obs_w)]))
+    return p
+
+
+def _bal_blocks(p):
+    from dr3_tpu_torch.ba.schur_core import cam_onehot_matrix
+    from dr3_tpu_torch.ba.snavely import _assemble_direct
+
+    E = cam_onehot_matrix(p.obs_cam, p.n_cams)
+    return _assemble_direct(p, E, 1e9), E
+
+
+def test_bal_z_scatter_is_bit_stable(dev):
+    """The one scatter-add of the BA layer (snavely._z_factor), with every
+    observation present again as a zero-weight padding row whose ids
+    collide with it: Z is bit-equal to the unpadded problem's, and two
+    explicit solves on the padded blocks are bit-equal."""
+    from dr3_tpu_torch.ba.snavely import _damp_blocks, _solve_explicit_direct, _z_factor
+
+    lam = torch.tensor(1e-3, device=dev)
+    p, pad = _bal_problem(dev), _bal_problem(dev, padded=True)
+    (blocks, _), _ = _bal_blocks(p)
+    (blocks2, _), E2 = _bal_blocks(pad)
+    _, Hinv9 = _damp_blocks(blocks, lam)
+    assert torch.equal(_z_factor(blocks, Hinv9), _z_factor(blocks2, Hinv9))
+    one = _solve_explicit_direct(blocks2, lam, pad.cam_fixed, E2)
+    two = _solve_explicit_direct(blocks2, lam, pad.cam_fixed, E2)
+    assert _bits_equal(one, two)
+    assert torch.isfinite(one[0]).all() and float(one[0][1:].abs().max()) > 0
+
+
+def test_bal_assembly_card_matches_cpu(dev):
+    """_assemble_direct on the card against the CPU: every block within 1e-5
+    of its scale, the cost rtol 1e-5, the same active rows."""
+    (gb, gc), _ = _bal_blocks(_bal_problem(dev))
+    (cb, cc), _ = _bal_blocks(_bal_problem("cpu"))
+    torch.testing.assert_close(gc.cpu(), cc, rtol=1e-5, atol=0.0)
+    assert torch.equal(gb.active.cpu(), cb.active)
+    for name in ("Hcc", "bc", "Hpp9", "bp", "Jcu", "Jcv", "Jpu", "Jpv"):
+        want = getattr(cb, name)
+        err = float((getattr(gb, name).cpu() - want).abs().max())
+        assert err <= 1e-5 * float(want.abs().max()), (name, err)
+
+
+@pytest.mark.parametrize("solver", ["zexplicit", "pcg", "explicit"])
+def test_bundle_adjust_snavely_repeats_bit_equal(dev, solver):
+    """Two LM runs give the same bits (the point sums a fixed-order table,
+    the camera sums 0/1 products, the Z scatter exact in any order) and the
+    same CG iterations."""
+    from dr3_tpu_torch.ba.snavely import bundle_adjust_snavely
+
+    p = _bal_problem(dev)
+    a = bundle_adjust_snavely(p, 5, huber_delta=1e9, solver=solver)
+    b = bundle_adjust_snavely(p, 5, huber_delta=1e9, solver=solver)
+    assert _bits_equal(a.problem, b.problem) and torch.equal(a.final_cost, b.final_cost)
+    assert a.cg_iters == b.cg_iters and float(a.final_cost) < float(a.initial_cost)
+
+
+def test_bal_products_run_in_float32_without_tf32(dev):
+    """A run leaves TF32 off (torch's default, which the exact 0/1 products
+    need), and on the card the broadcast through E reproduces the gather
+    bit for bit, which a TF32 product (10-bit mantissa) would not."""
+    from dr3_tpu_torch.ba.schur_core import _camera_reducer, cam_onehot_matrix
+    from dr3_tpu_torch.ba.snavely import bundle_adjust_snavely
+
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    p = _bal_problem(dev)
+    bundle_adjust_snavely(p, 2, huber_delta=1e9)
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    assert torch.get_float32_matmul_precision() == "highest"
+    params = torch.cat([p.cam_wxyz, p.cam_t, p.cam_fkk, 1.0 + torch.rand_like(p.cam_t)], 1)
+    _, to_obs = _camera_reducer(p.obs_cam.long(), p.n_cams, cam_onehot_matrix(p.obs_cam,
+                                                                               p.n_cams))
+    assert torch.equal(to_obs(params), params[p.obs_cam.long()])
+
+
 def test_k4_remap_xy_loop_descriptor_shape(rng, dev, monkeypatch):
     """remap_xy as the loop database calls it: 546 oriented 8x8 descriptor
     grids on pyramid level 2 of a KITTI frame (94x310, clamp) and the four

@@ -44,7 +44,9 @@ ALLOWED = {
     "geometry.ransac:ransac_homography": [_KEY, _SAMPLES],
     "geometry.ransac:sample_minimal_sets": [_KEY],
     "pipelines.twoview_init:initialize_two_view": [_KEY, _SAMPLES],
+    "ba.snavely:bal_to_snavely": [_DEVICE],
     "geometry.lie:SE3.identity": [_DEVICE],
+    "io.bal:bal_to_problem": [_DEVICE],
     "models.camera:Pinhole.create": [_DEVICE],
     "models.camera:Pinhole.kitti": [_DEVICE],
     "ops.blend:column_feather": [_DEVICE],

@@ -162,3 +162,44 @@ def ba_case(seed: int, n_cams: int = 6, n_pts: int = 120, noise_px: float = 0.5)
                 points=pts + rng.normal(0, 0.05, pts.shape).astype(np.float32),
                 intrinsics=intr, obs_cam=obs_cam, obs_pt=obs_pt, obs_uv=uv, obs_w=w,
                 cam_fixed=fixed, dist=None)
+
+
+# ---------------------------------------------------------------------------
+# BAL problems, numpy only (a copy of tests/test_snavely.py's generator)
+# ---------------------------------------------------------------------------
+
+def snavely_np(cam9, X, uv):
+    """Independent numpy evaluation of the BAL residual (ba.cc:105-118)."""
+    from scipy.spatial.transform import Rotation
+
+    aa, t, f, k1, k2 = cam9[:3], cam9[3:6], cam9[6], cam9[7], cam9[8]
+    p = Rotation.from_rotvec(aa).as_matrix() @ X + t
+    q = -p[:2] / p[2]
+    r2 = float(q @ q)
+    dist = 1.0 + k1 * r2 + k2 * r2 * r2
+    return f * dist * q - uv
+
+
+def rand_bal(rng, n_cams=4, n_pts=60, noise=0.0, pt_noise=0.0, k_radial=True):
+    """The port's BALData of a random scene: cameras along x with small
+    rotations, per-camera focals and radial terms, every camera seeing
+    every point (down -z), pixel noise ``noise``, points perturbed by
+    ``pt_noise``."""
+    from dr3_tpu_torch.io.bal import BALData
+
+    pts = np.stack([rng.uniform(-1, 1, n_pts), rng.uniform(-1, 1, n_pts),
+                    rng.uniform(-8, -4, n_pts)], 1)
+    cam = np.zeros((n_cams, 9))
+    cam[:, 0] = rng.normal(0, 0.02, n_cams)      # small angle-axis
+    cam[:, 3] = np.linspace(-0.5, 0.5, n_cams)
+    cam[:, 4] = rng.normal(0, 0.1, n_cams)
+    cam[:, 6] = rng.uniform(400, 600, n_cams)    # per-camera focals
+    if k_radial:
+        cam[:, 7] = rng.uniform(-0.1, 0.1, n_cams)
+        cam[:, 8] = rng.uniform(-0.01, 0.01, n_cams)
+    obs_cam = np.repeat(np.arange(n_cams), n_pts).astype(np.int32)
+    obs_pt = np.tile(np.arange(n_pts), n_cams).astype(np.int32)
+    uv = np.stack([snavely_np(cam[c], pts[p], np.zeros(2))
+                   for c, p in zip(obs_cam, obs_pt)])
+    uv += rng.normal(0, noise, uv.shape)
+    return BALData(cam, pts + pt_noise * rng.normal(size=pts.shape), obs_cam, obs_pt, uv)
