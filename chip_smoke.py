@@ -118,8 +118,41 @@ Phases (any failure raises, so the exit code is non-zero):
    Powell's function (cost below 1e-8) and the plain and robust curve fits
    of tests/test_lm_bal.py, within 1e-4 of the port's CPU results.
 
+8. legacy, two-view, distributed — (a) LegacySLAM(Pinhole.kitti(),
+   Config(fast_threshold=8.0, cell_size=12)) over the slice's first 10
+   frames (tests/test_slam_legacy.py's settings at KITTI width: 3,328
+   candidates a frame): per frame after the first more than 40 matches, 25
+   F inliers and 15 good triangulations, rotation within 1 degree of the
+   truth's relative motion, translation direction within 30 degrees; more
+   than 50 map points, one seen 3 times; K3's pyramid form once per frame,
+   K1's track_level once per frame after the first and K4's remap_xy (the
+   descriptors) once per frame (counters zeroed just before); 4 frames on
+   the card and on the CPU with the same draws (one CPU generator): counts
+   within 2%, rotations within 0.1 degree; K1 (3,328 tracks on level 0,
+   W=11 x 8) against its plain version over every track ok in both (at
+   most 1% end more than 1e-2 px apart, and each of those has its basin
+   decided by round-off: the plain version in float64, or from a start
+   1e-3 px away, moves it more than 1e-2 px or changes its ok), within
+   1e-2 px where the path takes the polish, and K3 (the three detection
+   levels at threshold 8) against its plain version; both timed, two
+   more frames under torch.profiler;
+   (b) run_twoview.main --init --map on frames 0 and 8 written as PNGs:
+   more than 100 F inliers, the bootstrap succeeds, rotation within 1
+   degree of the truth, both renderings written or the line saying
+   matplotlib is absent; (c) dist_bundle_adjust over a world-size-1 NCCL
+   group (a FileStore in a temporary directory) on phase 4's last window
+   and phase 4b's global problem, moved off the optimum, 8 LM iterations:
+   make_mesh(4) against make_mesh(1) (initial cost 1e-5, final 1e-4
+   relative), make_mesh(1) against bundle_adjust(solver="explicit") (1e-5,
+   1e-3), two make_mesh(4) runs bit-equal, each call's wall time; (d)
+   ``run_slam.main([..., "--distributed"])`` over the slice's 40 frames on
+   the card (one process: a one-shard mesh): phase 4's gates, the
+   decisions of the same CLI without --distributed on the same 8-bit
+   PNGs, positions within 5e-3 of that run's and of phase 4's.
+
 The kernel table (launches per general frame or per panorama, device us,
-bound, share of bound, library us) is printed before the last three
+bound, share of bound, library us; the legacy path's two rows per legacy
+frame) and the legacy path's launches are printed before the last three
 lines of stdout: a JSON object of per-kernel results (K4's ``remap`` timed
 at the descriptor patches, ``warp`` at the pair canvas; the paste is a row
 of the table only), the card's name and power limit, and ``{"ok": true,
@@ -151,7 +184,7 @@ sys.path.insert(0, ROOT)
 from dr3_tpu_torch.geometry.lie import SE3  # noqa: E402
 from dr3_tpu_torch.io.image import to_gray  # noqa: E402
 from dr3_tpu_torch.models.camera import Pinhole  # noqa: E402
-from dr3_tpu_torch.ops import _native, corners, lk, pyramid, warp  # noqa: E402
+from dr3_tpu_torch.ops import _native, corners, lk, match, pyramid, warp  # noqa: E402
 from dr3_tpu_torch.ops import sparse_align as sa  # noqa: E402
 from dr3_tpu_torch.pipelines.panorama import Panorama, PanType  # noqa: E402
 from dr3_tpu_torch.pipelines.stitch import find_correspondences  # noqa: E402
@@ -189,6 +222,9 @@ HOMO_N, HOMO_YAW = 4, 0.15
 BAL_FULL, BAL_SMALL, BAL_OVERLAP = (120, 60000, 4000), (16, 8000, 800), (16, 8000, 1600)
 BAL_TRUE_COST, BAL_INITIAL_COST, BAL_JAX_FINAL = 120035.73, 2978184.0, 97681.25
 BAL_SMALL_JAX_ZEXPLICIT = 601.6403          # zexplicit's 5 iterations at BAL_SMALL
+# phase 8(a): the legacy SLAM over the slice's first frames, and the card
+# against the CPU over fewer
+LEGACY_N, LEGACY_CPU_N = 10, 4
 DEV = "cuda"
 # the kernels' names in a profile: kernel or K4 form -> its __global__
 KERNEL_NAMES = {"lk_pyramid": "lk_pyramid_kernel", "lk_align": "lk_align_kernel",
@@ -873,6 +909,7 @@ def phase_loop(card, frames, gt):
         raise AssertionError(f"global_refine costs {costs}")
     if not a_ref < 0.05 * length:
         raise AssertionError(f"ATE after global_refine {a_ref} >= 5% of {length}")
+    return vo
 
 
 def phase_cpu_reference():
@@ -1662,6 +1699,405 @@ def phase_bal(card, vo):
     log(f"[bal] phase 7: {time.perf_counter() - t_phase:.1f} s")
 
 
+def rot_deg(Ra, Rb) -> float:
+    """The angle of Ra^T Rb in degrees."""
+    c = (np.trace(np.asarray(Ra, np.float64).T @ np.asarray(Rb, np.float64)) - 1.0) / 2.0
+    return float(np.degrees(np.arccos(np.clip(c, -1.0, 1.0))))
+
+
+def legacy_run(cfg, frames, device, cpu_draws=False):
+    """LegacySLAM over ``frames`` on ``device``: (slam, results, wall s).
+    ``cpu_draws``: every F RANSAC's minimal sets come from one CPU
+    generator seeded with SEED (the same sets on the card and on the CPU)."""
+    from dr3_tpu_torch.geometry import ransac as ransac_mod
+    from dr3_tpu_torch.pipelines.slam_legacy import LegacySLAM
+
+    real = ransac_mod.sample_minimal_sets
+    if cpu_draws:
+        gen = torch.Generator().manual_seed(SEED)
+        ransac_mod.sample_minimal_sets = lambda g, n, w, ns, ss: real(gen, n, w.cpu(), ns, ss)
+    try:
+        slam = LegacySLAM(Pinhole.kitti(), cfg, device=device)
+        t0 = time.perf_counter()
+        results = [slam.process(f) for f in frames]
+        wall = time.perf_counter() - t0
+    finally:
+        ransac_mod.sample_minimal_sets = real
+    return slam, results, wall
+
+
+def phase_legacy(card, frames):
+    """Phase 8(a): the legacy frame-to-frame SLAM (module docstring).
+    Returns (launch counts, table rows, in-path device us)."""
+    from dr3_tpu_torch.pipelines import slam_legacy as sl
+
+    cfg = Config(fast_threshold=8.0, cell_size=12)
+    counters = (lk.track_pyramid, lk.track_level, lk.align_to_templates, lk.sample_patches,
+                sa.sparse_align, corners.corner_response_pyramid, corners.corner_response,
+                warp.remap_xy)
+    run = frames[:LEGACY_N]
+    torch.cuda.synchronize()
+    for c in counters:
+        c.launches = 0
+    slam, results, wall = legacy_run(cfg, run, DEV)
+    torch.cuda.synchronize()
+    launches = {c.__name__: c.launches for c in counters}
+    log(slam.report())
+    poses, _ = lateral_path(LEGACY_N, STEP)
+    mats = [np.block([[T.R, T.t[:, None]], [np.zeros((1, 3)), np.ones((1, 1))]]) for T in poses]
+    worst = [0, 0, 0, 0.0, 0.0]
+    for i, r in enumerate(results[1:], start=1):
+        rel = mats[i] @ np.linalg.inv(mats[i - 1])
+        ang = rot_deg(r.R, rel[:3, :3])
+        gdir = rel[:3, 3] / np.linalg.norm(rel[:3, 3])
+        tdir = np.degrees(np.arccos(np.clip(abs(r.t @ gdir) / np.linalg.norm(r.t), 0, 1)))
+        log(f"[legacy] frame {i}: matches {r.n_matches}, inliers {r.n_inliers}, good "
+            f"{r.n_good}, rotation error {ang:.4f} deg, translation direction {tdir:.3f} deg")
+        if not (r.n_matches > 40 and r.n_inliers > 25 and r.n_good > 15 and ang < 1.0
+                and tdir < 30.0):
+            raise AssertionError(f"legacy frame {i}: {r.n_matches} matches, {r.n_inliers} "
+                                 f"inliers, {r.n_good} good, {ang} deg, {tdir} deg")
+        worst = [max(worst[0], r.n_matches), max(worst[1], r.n_inliers),
+                 max(worst[2], r.n_good), max(worst[3], ang), max(worst[4], tdir)]
+    n_pts, max_obs = slam.map_points().shape[0], max(slam.point_obs, default=0)
+    if results[0] is not None or not (n_pts > 50 and max_obs >= 3):
+        raise AssertionError(f"legacy map: {n_pts} points, max observations {max_obs}")
+    # K3 once per frame (the three detection levels), K1 once per frame after
+    # the first (level 0), K4's remap_xy once per frame (the descriptors)
+    want = {"corner_response_pyramid": LEGACY_N, "track_level": LEGACY_N - 1,
+            "remap_xy": LEGACY_N}
+    if launches != {c.__name__: want.get(c.__name__, 0) for c in counters}:
+        raise AssertionError(f"legacy launches {launches}, want {want}")
+    m = slam.monitor
+    log(f"[legacy] {LEGACY_N} frames 1240x376 in {wall:.3f} s, {LEGACY_N / wall:.2f} frames/s; "
+        f"avg frame (detect + describe) {1e3 * m['frame'].average:.3f} ms, match (match, LK "
+        f"polish, F RANSAC, E, cheirality, the read) {1e3 * m['match'].average:.3f} ms, global "
+        f"{1e3 * m['global'].average:.3f} ms; {n_pts} map points, max observations "
+        f"{max_obs} ({card})")
+
+    # the card against the CPU over 4 frames with the same draws
+    runs = {d: legacy_run(cfg, frames[:LEGACY_CPU_N], d, cpu_draws=True)
+            for d in (DEV, "cpu")}
+    gap, d_rot = 0.0, 0.0
+    for i, (a, b) in enumerate(zip(runs[DEV][1][1:], runs["cpu"][1][1:]), start=1):
+        for x, y in ((a.n_matches, b.n_matches), (a.n_inliers, b.n_inliers),
+                     (a.n_good, b.n_good)):
+            gap = max(gap, abs(x - y) / max(y, 1))
+        d_rot = max(d_rot, rot_deg(a.R, b.R))
+        log(f"[legacy] card vs CPU frame {i}: matches {a.n_matches}/{b.n_matches}, inliers "
+            f"{a.n_inliers}/{b.n_inliers}, good {a.n_good}/{b.n_good}, rotations "
+            f"{rot_deg(a.R, b.R):.4f} deg apart")
+    if not (gap <= 0.02 and d_rot < 0.1):
+        raise AssertionError(f"legacy card vs CPU: counts {gap} apart, rotations {d_rot} deg")
+    log(f"[legacy] card vs CPU over {LEGACY_CPU_N} frames, the same draws: counts within "
+        f"{100 * gap:.2f}%, rotations within {d_rot:.4f} deg; CPU {runs['cpu'][2]:.2f} s")
+
+    # K1 and K3 at the legacy shapes, against their plain versions, timed
+    dev = torch.device(DEV)
+    pyr0, xy0, v0, d0 = sl._detect_describe(torch.as_tensor(frames[0], device=dev), cfg)
+    pyr1, xy1, v1, d1 = sl._detect_describe(torch.as_tensor(frames[1], device=dev), cfg)
+    m01 = match.match_descriptors(d0, d1, v0, v1)
+    p1, p2 = xy0.contiguous(), xy1[m01.idx2].contiguous()
+    n = p1.shape[0]
+    pos, ok, _ = lk.track_level(pyr0[0], pyr1[0], p1, p2, 5, 8, 1e-3)
+    pos_p, ok_p, _ = lk._track_level_plain(pyr0[0], pyr1[0], p1, p2, 5, 8, 1e-3)
+    d = (pos - pos_p).abs().amax(-1)
+    both = ok & ok_p
+    out = both & (d > 1e-2)
+    # the witness: the plain version in float64, and in float32 from starts
+    # 1e-3 px away (x, y, both signs). A track whose end moves more than
+    # 1e-2 px under one of them has its basin decided by round-off; every
+    # track ok in both that the kernel ends elsewhere must be one of those
+    spread = torch.zeros_like(d)
+    flip = torch.zeros_like(ok)
+    wit = [lk._track_level_plain(pyr0[0].double(), pyr1[0].double(), p1.double(),
+                                 p2.double(), 5, 8, 1e-3)]
+    for e in ((1e-3, 0.0), (-1e-3, 0.0), (0.0, 1e-3), (0.0, -1e-3)):
+        wit.append(lk._track_level_plain(pyr0[0], pyr1[0], p1, p2 + p2.new_tensor(e), 5, 8,
+                                         1e-3))
+    for q, k, _ in wit:
+        spread = torch.maximum(spread, (q.float() - pos_p).abs().amax(-1))
+        flip |= k != ok_p
+    sensitive = (spread > 1e-2) | flip
+    unexplained = int((out & ~sensitive).sum())
+    n_out, n_both = int(out.sum()), int(both.sum())
+    # the path takes the polish only on an accepted match (m.ok) where it is
+    # ok and stays within 2 px of the match
+    near = lambda q, k: k & (torch.linalg.norm(q - p2, dim=-1) < 2.0)  # noqa: E731
+    acc, acc_p = near(pos, ok) & m01.ok, near(pos_p, ok_p) & m01.ok
+    used = acc & acc_p
+    err_k1 = float(d[used].max())
+    flips, taken = int((acc != acc_p).sum()), int(used.sum())
+    w_out = spread[out]
+    log(f"[K1] legacy track_level: {n} tracks on level 0 {tuple(pyr0[0].shape)}, W=11 x 8: ok "
+        f"{int(ok.sum())} (plain {int(ok_p.sum())}, {int((ok != ok_p).sum())} differ); of "
+        f"{n_both} ok in both {n_out} end more than 1e-2 px apart (max "
+        f"{float(d[both].max()):.3g} px), {n_out - unexplained} of them decided by round-off "
+        f"(the plain version in float64 or from a start 1e-3 px away moves them "
+        f"{float(w_out.min()) if n_out else 0.0:.3g}-{float(w_out.max()) if n_out else 0.0:.3g}"
+        f" px, {int(flip[out].sum())} change ok), {unexplained} not; of all {n_both}, "
+        f"{int(sensitive[both].sum())} are so decided; the polish taken on {taken} matches in "
+        f"both ({flips} in one only), there max |d pos| {err_k1:.3g}")
+    if not (unexplained == 0 and n_out <= 0.01 * n_both and err_k1 < 1e-2
+            and flips <= 0.01 * taken and taken > 0.3 * n):
+        raise AssertionError(f"K1 legacy: {n_out} of {n_both} tracks ok in both end apart, "
+                             f"{unexplained} not decided by round-off; max |d pos| {err_k1} "
+                             f"where the polish is taken, {flips} of {taken} in one only")
+    err_k3 = k3_pyramid_check("legacy detection levels (threshold 8)", pyr0[:cfg.n_pyr_levels],
+                              cfg.fast_threshold)
+    det = pyr0[:cfg.n_pyr_levels]
+    rows = {
+        "lk track_level (legacy)": measure(
+            lambda: lk.track_level(pyr0[0], pyr1[0], p1, p2, 5, 8, 1e-3),
+            lambda: lk._track_level_plain(pyr0[0], pyr1[0], p1, p2, 5, 8, 1e-3),
+            bound=bounds.k1_pyramid([pyr0[0]], [pyr1[0]], p1, p2, 5, 8, 1e-3),
+            max_abs_err=err_k1, shape=f"{n} tracks, level 0 of {tuple(pyr0[0].shape)}, W=11 x 8"),
+        "corner_response_pyramid (legacy)": measure(
+            lambda: corners.corner_response_pyramid(det, cfg.fast_threshold),
+            lambda: [corners._corner_response_plain(img, cfg.fast_threshold) for img in det],
+            bound=bounds.k3_corners(det, cfg.fast_threshold), max_abs_err=err_k3,
+            shape=f"{len(det)} levels of {tuple(pyr0[0].shape)}, threshold 8"),
+    }
+    for name, r in rows.items():
+        log_row(name, r, card)
+    # the path's own launches: two more frames under torch.profiler
+    events = profile(lambda: [slam.process(f) for f in frames[LEGACY_N:LEGACY_N + 2]])
+    window = per_launch(events, KERNEL_NAMES)
+    busy = 1e-3 * sum(us for _, us in events.values())
+    log(f"[legacy] device time per launch over 2 more frames under torch.profiler: "
+        + ", ".join(f"{k} {us:.2f} us x {c}" for k, (c, us) in window.items())
+        + f"; device time {busy / 2:.2f} ms a frame in {sum(c for c, _ in events.values()) // 2} "
+        f"kernels ({card})")
+    # where a legacy frame's host time goes: the operators by self CPU time
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        for f in frames[LEGACY_N + 2:LEGACY_N + 4]:
+            slam.process(f)
+        torch.cuda.synchronize()
+    top = sorted(prof.key_averages(), key=lambda e: e.self_cpu_time_total, reverse=True)[:8]
+    log("[legacy] host time over 2 frames by operator (self CPU ms, calls): " + ", ".join(
+        f"{e.key} {e.self_cpu_time_total / 1e3:.2f} ({e.count})" for e in top) + f" ({card})")
+    in_path = {"lk track_level (legacy)": window.get("lk_pyramid"),
+               "corner_response_pyramid (legacy)": window.get("corner_response")}
+    return launches, rows, in_path
+
+
+def phase_twoview(card, frames):
+    """Phase 8(b): run_twoview.main --init --map on the card over frames 0
+    and 8 of the slice written as PNGs (module docstring)."""
+    from dr3_tpu_torch import run_twoview
+
+    tmp = tempfile.mkdtemp(prefix="dr3_twoview_")
+    try:
+        paths = [os.path.join(tmp, f"{i:06d}.png") for i in (0, 8)]
+        for p, i in zip(paths, (0, 8)):
+            write_png(p, np.clip(frames[i] * 255.0 + 0.5, 0, 255).astype(np.uint8))
+        out, mp = os.path.join(tmp, "epipolar.png"), os.path.join(tmp, "map.png")
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = run_twoview.main(paths + ["--init", "--out", out, "--map", mp,
+                                           "--device", DEV])
+        wall = time.perf_counter() - t0
+        lines = buf.getvalue().splitlines()
+        head = next(ln for ln in lines if ln.startswith("matches:"))
+        n_inl = int(head.split()[3])
+        boot = next(ln for ln in lines if ln.startswith("bootstrap success:"))
+        i = lines.index("R =")
+        R = np.array([[float(v) for v in ln.strip(" []").split()] for ln in lines[i + 1:i + 4]])
+        ang = rot_deg(R, np.eye(3))               # lateral motion: no rotation
+        written = [ln for ln in lines if ln.startswith("wrote") or "not written" in ln]
+        for ln in [head, boot] + written:
+            log("[twoview]   " + ln)
+        for p in (out, mp):
+            if not (os.path.exists(p) and os.path.getsize(p) > 0
+                    or f"{p} not written: matplotlib is not installed" in lines):
+                raise AssertionError(f"run_twoview wrote no {p} and did not say why")
+        if rc != 0 or not (n_inl > 100 and boot.split()[2] == "True" and ang < 1.0):
+            raise AssertionError(f"run_twoview: rc {rc}, {n_inl} F-inliers, {boot}, "
+                                 f"rotation error {ang} deg")
+        log(f"[twoview] run_twoview.main --init --map on frames 0 and 8 (1240x376): {n_inl} "
+            f"F-inliers, bootstrap success, rotation error {ang:.4f} deg, {wall:.2f} s "
+            f"on the card ({card})")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def nudged(prob, seed):
+    """``prob`` with its free poses and its points moved off the optimum
+    (seeded, as phase 4b moves its window)."""
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    nudge = (0.01 * torch.randn((prob.n_cams, 6), generator=gen)).to(DEV)
+    nudge = torch.where(prob.cam_fixed[:, None], torch.zeros_like(nudge), nudge)
+    cams = (SE3.exp(nudge) @ prob.cams()).normalize()
+    return prob._replace(cam_wxyz=cams.wxyz, cam_t=cams.t, points=prob.points + (
+        0.02 * torch.randn(prob.points.shape, generator=gen)).to(DEV))
+
+
+def compact(prob):
+    """``prob`` without its zero-weight rows, its unobserved points and its
+    cameras with no observation left: the same cost and the same steps for
+    what remains (a dropped point or camera has no residual)."""
+    w = prob.obs_w > 0
+    oc, op = prob.obs_cam[w].long(), prob.obs_pt[w].long()
+    cams, pts = torch.unique(oc), torch.unique(op)
+    return prob._replace(cam_wxyz=prob.cam_wxyz[cams], cam_t=prob.cam_t[cams],
+                         points=prob.points[pts], cam_fixed=prob.cam_fixed[cams],
+                         obs_cam=torch.searchsorted(cams, oc).to(torch.int32),
+                         obs_pt=torch.searchsorted(pts, op).to(torch.int32),
+                         obs_uv=prob.obs_uv[w], obs_w=prob.obs_w[w])
+
+
+def phase_dist_ba(card, window_prob, global_prob):
+    """Phase 8(c): dist_bundle_adjust on the card over a world-size-1 NCCL
+    group (module docstring). The global problem (256 database slots x
+    16,384 map slots) is compared in its compact form: past the dense
+    guard bundle_adjust's explicit solve takes the pair table, a loop over
+    256 slots of [16,384, 256, 6, 6] products; make_mesh(4) also runs on
+    the whole problem, as global_refine calls it (one Z per shard: the
+    rank's whole Z is past the guard)."""
+    import torch.distributed as dist
+
+    from dr3_tpu_torch.parallel.dist_ba import dist_bundle_adjust
+    from dr3_tpu_torch.parallel.mesh import make_mesh
+
+    cfg = Config()
+    tmp = tempfile.mkdtemp(prefix="dr3_dist_")
+    backend = "nccl" if DEV == "cuda" else "gloo"       # the device decides
+    dist.init_process_group(backend, store=dist.FileStore(os.path.join(tmp, "store"), 1),
+                            rank=0, world_size=1)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = fn()
+        float(r.final_cost)
+        return r, 1e3 * (time.perf_counter() - t0)
+
+    def dist_ba(prob, n):
+        return timed(lambda: dist_bundle_adjust(prob, max_iters=8,
+                                                huber_delta=cfg.ba_huber_delta,
+                                                lambda0=cfg.ba_lambda0, mesh=make_mesh(n)))
+
+    rel = lambda x, y: abs(float(x) / float(y) - 1.0)  # noqa: E731
+    try:
+        if make_mesh(4).group is None or dist.get_backend() != backend:
+            raise AssertionError(f"backend {dist.get_backend()}, not {backend}")
+        full = nudged(global_prob, SEED + 8)
+        for name, prob in (("window", nudged(window_prob, SEED + 8)),
+                           ("global (compact)", compact(full))):
+            res, walls = {}, {}
+            for tag, n in (("mesh4", 4), ("mesh4 again", 4), ("mesh1", 1)):
+                res[tag], walls[tag] = dist_ba(prob, n)
+            res["explicit"], walls["explicit"] = timed(lambda: bundle_adjust(
+                prob, 8, cfg.ba_huber_delta, cfg.ba_jacobi_scaling, cfg.ba_lambda0,
+                solver="explicit"))
+            a, b = res["mesh4"], res["mesh4 again"]
+            same = all(torch.equal(x, y) for x, y in zip(
+                (a.initial_cost, a.final_cost, a.problem.cam_wxyz, a.problem.cam_t,
+                 a.problem.points),
+                (b.initial_cost, b.final_cost, b.problem.cam_wxyz, b.problem.cam_t,
+                 b.problem.points)))
+            log(f"[dist] {name} problem (K {prob.n_cams}, P {prob.n_points}, O {prob.n_obs}), 8 "
+                f"LM iterations: " + ", ".join(
+                    f"{k} {float(r.initial_cost):.6f} -> {float(r.final_cost):.6f} "
+                    f"({walls[k]:.2f} ms, {int(r.n_accepted)} accepted)" for k, r in res.items())
+                + f"; mesh4 repeats bit-equal {same} ({card})")
+            if not same:
+                raise AssertionError(f"{name}: two make_mesh(4) runs differ")
+            m4, m1, ex = res["mesh4"], res["mesh1"], res["explicit"]
+            if not (rel(m4.initial_cost, m1.initial_cost) < 1e-5
+                    and rel(m4.final_cost, m1.final_cost) < 1e-4):
+                raise AssertionError(f"{name}: make_mesh(4) vs make_mesh(1) costs differ")
+            if not (rel(m1.initial_cost, ex.initial_cost) < 1e-5
+                    and rel(m1.final_cost, ex.final_cost) < 1e-3):
+                raise AssertionError(f"{name}: make_mesh(1) vs bundle_adjust explicit differ")
+        whole, wall = dist_ba(full, 4)
+        log(f"[dist] the whole global problem (K {full.n_cams}, P {full.n_points}, O "
+            f"{full.n_obs}), make_mesh(4), as global_refine runs it: {float(whole.initial_cost):.6f}"
+            f" -> {float(whole.final_cost):.6f} in {wall:.2f} ms ({card})")
+        if not (rel(whole.initial_cost, m4.initial_cost) < 1e-5
+                and rel(whole.final_cost, m4.final_cost) < 1e-4):
+            raise AssertionError("the whole and the compact global problem differ")
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def phase_dist_cli(card, frames, gt, slice_run):
+    """Phase 8(d): run_slam.main --distributed over the slice's frames on the
+    card (module docstring). The frames go through 8-bit PNGs, so its
+    decisions are held to the same CLI without --distributed on the same
+    files (phase 4 ran the float frames: a keyframe gate may flip), its
+    positions to phase 4's."""
+    from dr3_tpu_torch import run_slam
+    from dr3_tpu_torch.io.checkpoint import load_vo
+
+    tmp = tempfile.mkdtemp(prefix="dr3_dcli_")
+    try:
+        seq = os.path.join(tmp, "seq")
+        os.makedirs(os.path.join(seq, "image_0"))
+        for i, f in enumerate(frames):
+            write_png(os.path.join(seq, "image_0", f"{i:06d}.png"),
+                      np.clip(f * 255.0 + 0.5, 0, 255).astype(np.uint8))
+        np.savetxt(os.path.join(seq, "times.txt"), 0.1 * np.arange(len(frames)))
+        runs = {}
+        for name, extra in (("distributed", ["--distributed"]), ("plain", ["--batch", "1"])):
+            out = os.path.join(tmp, name)
+            t0 = time.perf_counter()
+            dec, lines = captured(lambda: run_slam.main(["--seq", seq, "--out", out,
+                                                          "--device", DEV] + extra))
+            wall = time.perf_counter() - t0
+            vo = MonoVO(Pinhole.kitti(), Config(), device=DEV)
+            load_vo(os.path.join(out, "final"), vo)
+            runs[name] = (dec, lines, vo, wall)
+        dec, lines, vo, wall = runs["distributed"]
+        n_ba = [int(ln.split()[1]) for ln in lines if ln.startswith("window_BA")]
+        head = [ln for ln in lines if ln.startswith("run_slam:")]
+        if not head or "1 point-shard mesh" not in head[0]:
+            raise AssertionError(f"run_slam --distributed: {head}")
+        if vo.stage is not Stage.GENERAL or vo.kf_count < 3 or not n_ba or n_ba[0] < 1:
+            raise AssertionError(f"--distributed run: {vo.stage}, {vo.kf_count} keyframes, "
+                                 f"window BA {n_ba}")
+        if not int(vo.map.n) > 100:
+            raise AssertionError(f"--distributed run: map points {int(vo.map.n)}")
+        a, length = ate_share(vo.positions(), gt)
+        if not a < 0.05 * length:
+            raise AssertionError(f"--distributed run: ATE {a} >= 5% of {length}")
+        ref = [(s.stage, s.is_keyframe) for s in slice_run["stats"]]
+        got = [(st, kf) for _, st, kf in dec]
+        plain = [(st, kf) for _, st, kf in runs["plain"][0]]
+        d_pos = float(np.abs(vo.positions() - slice_run["positions"]).max())
+        d_plain = float(np.abs(vo.positions() - runs["plain"][2].positions()).max())
+        flips = [i for i, (x, y) in enumerate(zip(got, ref)) if x != y]
+        log(f"[dist] run_slam.main --distributed over {len(frames)} frames in {wall:.2f} s on "
+            f"the card (without it, --batch 1: {runs['plain'][3]:.2f} s): {vo.kf_count} "
+            f"keyframes, window BA {n_ba[0]}, map points {int(vo.map.n)}, ATE "
+            f"{100 * a / length:.3f}% of the path; decisions equal to the same CLI's without "
+            f"--distributed {got == plain} (max |d position| {d_plain:.3g}), to phase 4's "
+            f"float frames' {got == ref} (frames {flips} differ; max |d position| "
+            f"{d_pos:.3g}) ({card})")
+        if got != plain or not (d_plain < 5e-3 and d_pos < 5e-3):
+            raise AssertionError(f"--distributed: decisions equal {got == plain}, max "
+                                 f"|d position| {d_plain} / {d_pos} (phase 4)")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def phase_8(card, frames, gt, slice_run, loop_vo):
+    """Phase 8: legacy, two-view, distributed (module docstring)."""
+    t0 = time.perf_counter()
+    legacy = phase_legacy(card, frames)
+    phase_twoview(card, frames)
+    window = vo_mod._window_problem(slice_run["vo"].kfs, slice_run["vo"].map,
+                                    slice_run["vo"].intr, slice_run["vo"].cam.dist)
+    glob = lc.global_ba_problem(loop_vo.loop_db, loop_vo.map, loop_vo.intr, loop_vo.cam.dist)
+    phase_dist_ba(card, window, glob)
+    phase_dist_cli(card, frames[:N_FRAMES], gt[:N_FRAMES], slice_run)
+    log(f"[phase 8] {time.perf_counter() - t0:.1f} s")
+    return legacy
+
+
 def print_table(rows, per, in_path, card):
     """The kernel table: launches on its path's run per general frame (VO)
     or per panorama (K4); device us per launch at the row's shape (100
@@ -1700,13 +2136,14 @@ def main():
         results[name]["max_abs_err"] = max(results[name]["max_abs_err"], err)
     launches, n_general, slice_window, n_kf, slice_run = phase_slice(
         card, frames[:N_FRAMES], gt[:N_FRAMES], frames[N_FRAMES:])
-    phase_loop(card, frames[:N_FRAMES], gt[:N_FRAMES])
+    loop_vo = phase_loop(card, frames[:N_FRAMES], gt[:N_FRAMES])
     phase_cpu_reference()
     pano_launches, pano_wrappers, n_panoramas, pano_window, pastes = phase_panorama(card,
                                                                                      pano_cases)
     phase_cpu_panorama()
     phase_cli(card, frames[:N_FRAMES], gt[:N_FRAMES], slice_run)
-    phase_bal(card, slice_run.pop("vo"))
+    phase_bal(card, slice_run["vo"])
+    legacy_launches, legacy_rows, legacy_in_path = phase_8(card, frames, gt, slice_run, loop_vo)
 
     # dr3_remap and dr3_warp each replace both TPU warp kernels: the
     # Catmull-Smith passes K4a and K4b compose into one direct sampler
@@ -1751,8 +2188,15 @@ def main():
                     "warp_perspective (paste)": pano_window.get("warp_perspective"),
                     "remap_xy (loop descriptors)": slice_window.get("remap_xy"),
                     "remap_xy (loop query rotation)": slice_window.get("remap_xy")})
-    print_table({**{k: results[k] for k in vo_rows}, **pano_rows, **k4_rows, **loop_rows},
-                per, in_path, card)
+    per["lk track_level (legacy)"] = (f"{legacy_launches['track_level'] / LEGACY_N:.3f} per "
+                                      f"legacy frame (1 per frame after the first)")
+    per["corner_response_pyramid (legacy)"] = (
+        f"{legacy_launches['corner_response_pyramid'] / LEGACY_N:.3f} per legacy frame")
+    in_path.update(legacy_in_path)
+    print_table({**{k: results[k] for k in vo_rows}, **pano_rows, **k4_rows, **loop_rows,
+                 **legacy_rows}, per, in_path, card)
+    log(f"[legacy] launches over its {LEGACY_N} frames (the VO path's are the JSON line's): "
+        f"{json.dumps(legacy_launches)}")
     meta = {
         "corner_response": ("dr3_tpu_torch/csrc/detect.cu",
                             "dr3_tpu/ops/pallas/detect_pallas.py:54"),

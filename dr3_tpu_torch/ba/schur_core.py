@@ -278,17 +278,20 @@ def _explicit_s_corr(WHinv_pad, AtB_pad, cam_pad, pt_table, n_cams: int):
 
 
 def _explicit_s_corr_sqrt(Hpp_inv, AtB, obs_cam, obs_pt, active, n_cams: int,
-                          n_points: int):
+                          n_points: int, by_key=None):
     """W Hpp^-1 W^T as Z^T Z: with Hpp^-1_p = L_p L_p^T, the (point,
     camera) block of Z [3P, CK] is L_p^T sum_o AtB_o^T over the point's
     observations by that camera (duplicates add, padding rows add zeros).
     The active rows' blocks are summed per (point, camera) key in a fixed
-    order, keys in int64."""
+    order, keys in int64: by the keyed table, or by ``by_key`` (a reducer
+    over those keys built once by a caller with an LM loop)."""
     O, C, _ = AtB.shape
     Lo = chol3(Hpp_inv)[obs_pt]                            # [O, 3, 3] lower
     zupd = torch.einsum("ojr,ocj->orc", Lo, AtB)           # [O, 3, C]
-    key = obs_pt.long() * n_cams + obs_cam.long()
-    Zb = _table_reducer(key, n_points * n_cams, active)(zupd)   # [P*K, 3, C]
+    if by_key is None:
+        key = obs_pt.long() * n_cams + obs_cam.long()
+        by_key = _table_reducer(key, n_points * n_cams, active)
+    Zb = by_key(zupd)                                      # [P*K, 3, C]
     Z = Zb.reshape(n_points, n_cams, 3, C).permute(0, 2, 1, 3) \
         .reshape(3 * n_points, n_cams * C)
     return (Z.T @ Z).reshape(n_cams, C, n_cams, C)
@@ -317,6 +320,37 @@ def _explicit_s_corr_dense(WHinv, AtB, obs_cam, obs_pt, active, n_cams: int,
     U2 = U.permute(1, 2, 0, 3).reshape(n_cams * C, n_points * 3)
     V2 = V.permute(1, 2, 0, 3).reshape(n_cams * C, n_points * 3)
     return (U2 @ V2.T).reshape(n_cams, C, n_cams, C)
+
+
+def _dense_camera_step(S_corr, Hcc_d, rhs, keep_v, jacobi: bool, border=None):
+    """The dense reduced camera solve: S = blockdiag(Hcc_d) - S_corr
+    ([K, C, K, C]), bordered by ``border`` = (S_gc [G, K*C], S_gg [G, G])
+    when given, the gauge fix (rows and columns where ``keep_v`` is 0 are
+    the identity), Jacobi scaling, + 1e-6 I, Cholesky and both triangular
+    solves. ``rhs`` and ``keep_v`` cover the border's rows too. Returns x
+    [K*C (+G)]; a failed factorization gives NaN (as jnp.linalg.cholesky
+    does), so the LM loop rejects the step; no host read."""
+    K, C = Hcc_d.shape[0], Hcc_d.shape[-1]
+    S = -S_corr
+    kk = torch.arange(K, device=S.device)
+    S[kk, :, kk, :] = S[kk, :, kk, :] + Hcc_d
+    S = S.reshape(K * C, K * C)
+    if border is not None:
+        S_gc, S_gg = border
+        S = torch.cat([torch.cat([S, S_gc.T], 1), torch.cat([S_gc, S_gg], 1)], 0)
+    # gauge fixing: zero rows/cols of fixed cameras, identity diagonal
+    S = S * keep_v[:, None] * keep_v[None, :] + torch.diag(1.0 - keep_v)
+    rhs = rhs * keep_v
+    if jacobi:
+        dinv = 1.0 / torch.sqrt(torch.clamp(torch.diagonal(S), min=1e-12))
+        S = S * dinv[:, None] * dinv[None, :]
+        rhs = rhs * dinv
+    S = S + 1e-6 * torch.eye(S.shape[0], dtype=S.dtype, device=S.device)
+    L, info = torch.linalg.cholesky_ex(S)
+    L = torch.where(info == 0, L, torch.full_like(L, float("nan")))
+    y = torch.linalg.solve_triangular(L, rhs[:, None], upper=False)
+    x = torch.linalg.solve_triangular(L.T, y, upper=True)[:, 0]
+    return x * dinv if jacobi else x
 
 
 def solve_schur(blocks: SchurBlocks, lam, cam_fixed, *,
@@ -374,35 +408,15 @@ def _solve_schur(blocks: SchurBlocks, lam, cam_fixed, *, method, d_max, jacobi,
             tbl = group_by_point(op, blocks.active, P, K if d_max is None else d_max)
             S_corr = _explicit_s_corr(_pad_obs(WHinv), _pad_obs(blocks.AtB),
                                       _pad_obs(oc), tbl, K)
-        S = -S_corr
-        kk = torch.arange(K, device=S.device)
-        S[kk, :, kk, :] = S[kk, :, kk, :] + Hcc_d
-        S = S.reshape(K * C, K * C)
         rhs = rhs_c.reshape(K * C)
         keep_v = keep.repeat_interleave(C)
+        border = None
         if has_g:
-            Sgc_flat = S_gc.permute(1, 0, 2).reshape(G, K * C)
-            S = torch.cat([torch.cat([S, Sgc_flat.T], 1),
-                           torch.cat([Sgc_flat, S_gg], 1)], 0)
+            border = (S_gc.permute(1, 0, 2).reshape(G, K * C), S_gg)
             rhs = torch.cat([rhs, rhs_g])
             keep_v = torch.cat([keep_v, torch.ones((G,), dtype=keep.dtype,
                                                    device=keep.device)])
-        # gauge fixing: zero rows/cols of fixed cameras, identity diagonal
-        S = S * keep_v[:, None] * keep_v[None, :] + torch.diag(1.0 - keep_v)
-        rhs = rhs * keep_v
-        if jacobi:
-            dinv = 1.0 / torch.sqrt(torch.clamp(torch.diagonal(S), min=1e-12))
-            S = S * dinv[:, None] * dinv[None, :]
-            rhs = rhs * dinv
-        S = S + 1e-6 * torch.eye(S.shape[0], dtype=S.dtype, device=S.device)
-        # a failed factorization gives NaN (as jnp.linalg.cholesky does), so
-        # the LM loop rejects the step; no host read
-        L, info = torch.linalg.cholesky_ex(S)
-        L = torch.where(info == 0, L, torch.full_like(L, float("nan")))
-        y = torch.linalg.solve_triangular(L, rhs[:, None], upper=False)
-        x = torch.linalg.solve_triangular(L.T, y, upper=True)[:, 0]
-        if jacobi:
-            x = x * dinv
+        x = _dense_camera_step(S_corr, Hcc_d, rhs, keep_v, jacobi, border)
         dc = x[:K * C].reshape(K, C)
         dg = x[K * C:] if has_g else None
     else:

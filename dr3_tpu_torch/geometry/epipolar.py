@@ -214,3 +214,18 @@ def check_rt(R: torch.Tensor, t: torch.Tensor, p1: torch.Tensor,
     parallax_deg = torch.acos(cos_sel) * (180.0 / math.pi)
     parallax_deg = torch.where(n_good > 0, parallax_deg, torch.zeros_like(parallax_deg))
     return CheckRTResult(n_good=n_good, good=good, points=X, parallax=parallax_deg)
+
+
+def disambiguate_pose(hyp: PoseHypotheses, p1: torch.Tensor, p2: torch.Tensor,
+                      weights: torch.Tensor, K: torch.Tensor, sigma2: float = 1.0):
+    """Pick the (R, t) with most good points among the 4 hypotheses,
+    requiring a clear winner like ReconstructF (initialization.cpp:286-306):
+    second-best must be < 0.7 * best. One batched :func:`check_rt` over
+    the hypotheses; ties go to the first index. Returns
+    (best_idx, results_stacked, clear_winner: bool tensor)."""
+    results = check_rt(hyp.R, hyp.t, p1, p2, weights, K, sigma2)
+    n = results.n_good
+    best = torch.argmax(n)
+    nmax = n[best]
+    n_similar = (n.to(torch.float32) > 0.7 * nmax).sum()
+    return best, results, n_similar == 1

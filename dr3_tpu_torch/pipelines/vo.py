@@ -29,8 +29,9 @@ one per keyframe (the keyframe counters), one for the loop query's result
 and one per CG iteration of window BA. ``fused_frontend=False`` runs the
 step eagerly with a ``Monitor`` toc per sub-stage, each synchronising the
 device. ``process_batch`` runs the same per-frame driver over groups of
-frames uploaded in one copy each. The mesh-distributed BA is not ported
-yet; ``mesh=`` raises ``NotImplementedError``.
+frames uploaded in one copy each. With ``mesh=`` (parallel/mesh.py) the
+window BA and ``global_refine`` run the point-sharded distributed BA
+(parallel/dist_ba.py) instead; the general frame is the same.
 """
 
 from __future__ import annotations
@@ -48,6 +49,7 @@ from dr3_tpu_torch.geometry.linalg import smallest_eigvec_gram
 from dr3_tpu_torch.models.camera import Pinhole
 from dr3_tpu_torch.ops import corners, lk, pyramid
 from dr3_tpu_torch.ops.sparse_align import sparse_align
+from dr3_tpu_torch.parallel.dist_ba import dist_bundle_adjust
 from dr3_tpu_torch.pipelines import loop_closure as lc
 from dr3_tpu_torch.pipelines.twoview_init import initialize_two_view
 from dr3_tpu_torch.state import (KeyframeState, MapState, TrackState,
@@ -463,6 +465,20 @@ def _local_ba(kfs: KeyframeState, map_state: MapState, intr, dist,
     return kfs2, map2, res.initial_cost, res.final_cost, res.cg_iters
 
 
+def _local_ba_distributed(kfs: KeyframeState, map_state: MapState, intr,
+                          dist, cfg: Config, max_iters: int, mesh):
+    """Mesh-distributed window BA: points shard over the mesh, cameras
+    replicate, one all-reduce of the reduced camera system per LM
+    iteration (parallel/dist_ba.py). Returns (kfs, map, initial cost,
+    final cost)."""
+    prob = _window_problem(kfs, map_state, intr, dist)
+    res = dist_bundle_adjust(prob, max_iters=max_iters, huber_delta=cfg.ba_huber_delta,
+                             lambda0=cfg.ba_lambda0, mesh=mesh)
+    kfs2 = kfs._replace(wxyz=res.problem.cam_wxyz, t=res.problem.cam_t)
+    map2 = map_state._replace(xyz=res.problem.points)
+    return kfs2, map2, res.initial_cost, res.final_cost
+
+
 # ---------------------------------------------------------------------------
 # driver
 # ---------------------------------------------------------------------------
@@ -491,11 +507,10 @@ class MonoVO:
             # compaction frees nothing and the next insert would overflow
             raise ValueError("loop_db_capacity must be >= 4 when loop_closure "
                              f"is enabled (got {self.cfg.loop_db_capacity})")
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh-distributed window BA is not ported yet (ROADMAP.md "
-                "Queue 1, item 10 'Distribution')")
+        self.mesh = mesh
         self.device = resolve_device(device, "MonoVO")
+        if mesh is not None and mesh.device.type != self.device.type:
+            raise ValueError(f"MonoVO on {self.device} with a mesh on {mesh.device}")
         self.cam = cam.to(self.device)
         n_cols = -(-cam.width // self.cfg.cell_size)
         n_rows = -(-cam.height // self.cfg.cell_size)
@@ -820,8 +835,14 @@ class MonoVO:
         becomes the just-optimised keyframe pose."""
         cfg = self.cfg
         self.monitor.tic("local_BA")
-        self.kfs, self.map, _c0, _c1, n_cg = _local_ba(
-            self.kfs, self.map, self.intr, self.cam.dist, cfg, cfg.ba_max_iters)
+        n_cg = 0
+        if self.mesh is not None:
+            self.kfs, self.map, _c0, _c1 = _local_ba_distributed(
+                self.kfs, self.map, self.intr, self.cam.dist, cfg, cfg.ba_max_iters,
+                self.mesh)
+        else:
+            self.kfs, self.map, _c0, _c1, n_cg = _local_ba(
+                self.kfs, self.map, self.intr, self.cam.dist, cfg, cfg.ba_max_iters)
         self.monitor.toc("local_BA", block=self.map.xyz)
         self.n_window_ba += 1
         self.n_cg_iters += n_cg
@@ -941,8 +962,12 @@ class MonoVO:
         cfg = self.cfg
         db = self.loop_db
         prob = lc.global_ba_problem(db, self.map, self.intr, self.cam.dist)
-        res = bundle_adjust(prob, max_iters, cfg.ba_huber_delta,
-                            cfg.ba_jacobi_scaling, cfg.ba_lambda0)
+        if self.mesh is not None:
+            res = dist_bundle_adjust(prob, max_iters=max_iters, huber_delta=cfg.ba_huber_delta,
+                                     lambda0=cfg.ba_lambda0, mesh=self.mesh)
+        else:
+            res = bundle_adjust(prob, max_iters, cfg.ba_huber_delta,
+                                cfg.ba_jacobi_scaling, cfg.ba_lambda0)
         self.map = self.map._replace(xyz=res.problem.points)
         self._apply_db_poses(db.frame_id.cpu().numpy(), db.valid.cpu().numpy(),
                              SE3(db.wxyz, db.t).matrix().cpu().numpy(),

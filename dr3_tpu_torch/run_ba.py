@@ -59,6 +59,10 @@ def main(argv=None):
         raise SystemExit("run_ba: --device cuda but torch.cuda.is_available() is False; "
                          "pass --device cpu to run the plain versions")
 
+    from dr3_tpu_torch.parallel.mesh import distributed_init
+
+    distributed_init(device=device)  # multi-process launch contract (no-op in one process)
+
     from dr3_tpu_torch.io.bal import load_bal, save_bal
 
     data = load_bal(args.bal)

@@ -15,8 +15,12 @@ against libpng and libjpeg, else PIL).
 ``--device`` defaults to cuda and is never replaced silently: without a
 card the run stops. ``--resume`` loads a checkpoint (of either package)
 and continues with the frame after it. Further ``--key=value`` flags
-override Config fields. ``--distributed`` (the mesh-distributed window BA)
-is not ported yet.
+override Config fields. ``--distributed`` shards the window BA's points
+over a mesh (parallel/dist_ba.py): in one process one shard on the
+device; under torchrun one rank per card, a [hosts, points] mesh over the
+group (``torchrun --nproc-per-node=<cards> -m dr3_tpu_torch.run_slam
+--distributed ...``), each rank running the whole VO and writing its
+outputs under ``<out>/rank<r>`` past rank 0. Batching is off with a mesh.
 """
 
 from __future__ import annotations
@@ -38,7 +42,8 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--out", default="results")
     ap.add_argument("--max-frames", type=int, default=0)
     ap.add_argument("--distributed", action="store_true",
-                    help="shard local BA over all visible devices (not ported yet)")
+                    help="shard the window BA's points over a mesh (one rank per card "
+                         "under torchrun)")
     ap.add_argument("--checkpoint-every", type=int, default=0)
     ap.add_argument("--resume", default=None, help="checkpoint path to resume")
     ap.add_argument("--loop-closure", action="store_true",
@@ -89,7 +94,7 @@ def run(vo, frames, args, out_dir: str, times=None):
     from dr3_tpu_torch.viz.draw3d import render_vo
 
     os.makedirs(out_dir, exist_ok=True)
-    batched = args.batch > 1
+    batched = args.batch > 1 and vo.mesh is None
     chunk: list = []
 
     def flush_chunk():
@@ -135,13 +140,26 @@ def run(vo, frames, args, out_dir: str, times=None):
 
 def main(argv=None):
     args, unknown = _parser().parse_known_args(argv)
-    if args.distributed:
-        raise NotImplementedError("--distributed: the mesh-distributed window BA is not "
-                                  "ported yet (ROADMAP.md Queue 1, item 10 'Distribution')")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("run_slam: --device cuda but torch.cuda.is_available() is "
                          "False; pass --device cpu to run the plain versions")
+
+    from dr3_tpu_torch.parallel.mesh import distributed_init, make_mesh, make_mesh_2d
+
+    # multi-process launch contract (torchrun's; no-op in one process)
+    distributed_init(device=device)
+    mesh, out_dir = None, args.out
+    if args.distributed:
+        import torch.distributed as dist
+
+        # a [hosts, points] mesh when several ranks take part (each rank's
+        # shards summed, then one reduction across ranks); one shard alone
+        multi = dist.is_initialized() and dist.get_world_size() > 1
+        mesh = make_mesh_2d(device=device) if multi else make_mesh(device=device)
+        device = mesh.device                  # an NCCL rank's own card
+        if mesh.rank > 0:
+            out_dir = os.path.join(args.out, f"rank{mesh.rank}")
 
     from dr3_tpu_torch.io.kitti import KittiSequence, open_fixture_sequence, open_sequence
     from dr3_tpu_torch.pipelines.vo import MonoVO
@@ -154,7 +172,7 @@ def main(argv=None):
         cfg = cfg.replace(loop_closure=False)
     cfg = cfg.replace(frames_per_dispatch=args.batch)
     seq = open_sequence(args.seq) if args.seq else open_fixture_sequence()
-    vo = MonoVO(seq.cam, cfg, device=device)
+    vo = MonoVO(seq.cam, cfg, mesh=mesh, device=device)
     start = 0
     if args.resume:
         from dr3_tpu_torch.io.checkpoint import load_vo
@@ -163,9 +181,10 @@ def main(argv=None):
         start = vo.frame_idx + 1
     stop = args.max_frames if args.max_frames else len(seq)
     todo = KittiSequence(seq.image_paths[start:stop], cam=seq.cam)
-    print(f"run_slam: frames {start}..{max(start, stop) - 1} of {len(seq)} on {device}",
-          flush=True)
-    run(vo, todo, args, args.out, seq.times)
+    print(f"run_slam: frames {start}..{max(start, stop) - 1} of {len(seq)} on {device}"
+          + ("" if mesh is None else f", window BA over a {'x'.join(map(str, mesh.shape))} "
+             f"point-shard mesh (rank {mesh.rank} of {mesh.world})"), flush=True)
+    run(vo, todo, args, out_dir, seq.times)
     print(f"decoder: {todo.decoder or 'none (no frame to decode)'}")
     return 0
 

@@ -3,7 +3,7 @@
 (image_0/%06d.png + times.txt): the four outputs, a trajectory file equal
 to the TUM lines the JAX package's formula gives for the same matrices
 (dr3_tpu/run_slam.py:137-148), --resume continuing from the checkpoint,
-and the refusals (--distributed; --device cuda without a card)."""
+and the refusals (--device cuda without a card, with --distributed too)."""
 
 import json
 import os
@@ -96,9 +96,8 @@ def test_resume_continues_from_the_checkpoint(first_run, seq_dir, tmp_path, caps
 
 
 def test_refusals(seq_dir, tmp_path, monkeypatch):
-    with pytest.raises(NotImplementedError, match="Distribution"):
-        run_slam.main(["--seq", seq_dir, "--out", str(tmp_path), "--distributed"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    with pytest.raises(SystemExit, match="--device cpu"):
-        run_slam.main(["--seq", seq_dir, "--out", str(tmp_path)])
+    for extra in ([], ["--distributed"]):
+        with pytest.raises(SystemExit, match="--device cpu"):
+            run_slam.main(["--seq", seq_dir, "--out", str(tmp_path)] + extra)
     assert not os.listdir(tmp_path)

@@ -27,6 +27,8 @@ _KEY = ("rename", "generator", "key", "a torch.Generator takes the place of a ja
 _SAMPLES = ("extra", "sample_idx", "parity tests hand the JAX package's RANSAC draws to "
                                    "the port")
 _DEVICE = ("extra", "device", "torch allocates on a named device; JAX places arrays itself")
+_MESH_DEVICE = ("extra", "device", "a single process's shards share one named device; a JAX "
+                                   "mesh is built over jax.devices()")
 
 # "module:qualname" -> the differences allowed there:
 #   ("rename", port_name, jax_name, reason) — a parameter renamed in place;
@@ -59,6 +61,12 @@ ALLOWED = {
     "state:TrackState.empty": [_DEVICE],
     "pipelines.stitch:Stitch.__init__": [_DEVICE],
     "pipelines.vo:MonoVO.__init__": [_DEVICE],
+    "pipelines.slam_legacy:LegacySLAM.__init__": [_DEVICE],
+    "parallel.mesh:make_mesh": [_MESH_DEVICE],
+    "parallel.mesh:make_mesh_2d": [_MESH_DEVICE],
+    "parallel.mesh:distributed_init": [
+        ("extra", "device", "the device decides the backend: NCCL with one rank per card, "
+                            "gloo on the CPU (JAX picks its platform itself)")],
     "pipelines.panorama:Panorama.__init__": [
         _DEVICE, ("missing", "transfer_uint8", "the lossy uint8 relay transfer of the TPU "
                                                "host is not carried over (ROADMAP.md)")],

@@ -213,12 +213,21 @@ def test_referenced_points_and_compaction(jax_run):
 
 
 def test_unported_options_raise():
-    """mesh= (the distributed window BA) still raises; the users' default
-    Config(), loop closure on, constructs with an empty loop database."""
+    """The users' default Config(), loop closure on, constructs with an
+    empty loop database; a too small database raises. mesh= (the
+    distributed window BA, ported since: tests/test_torch_vo_distributed.py)
+    constructs with a mesh on MonoVO's device and raises with one
+    elsewhere."""
+    from dr3_tpu_torch.parallel.mesh import make_mesh
+
     vo = TMonoVO(_port_cam(), Config(), device="cpu")
     assert vo.loop_db is not None and vo.db_cursor == 0
     assert vo.loop_db.thumb.shape == (256, 12 * 40)
     with pytest.raises(ValueError, match="loop_db_capacity"):
         TMonoVO(_port_cam(), Config(loop_db_capacity=3), device="cpu")
-    with pytest.raises(NotImplementedError, match="Distribution"):
-        TMonoVO(_port_cam(), Config(loop_closure=False), mesh=object(), device="cpu")
+    mesh = make_mesh(2, device="cpu")
+    assert TMonoVO(_port_cam(), Config(loop_closure=False), mesh=mesh,
+                   device="cpu").mesh is mesh
+    with pytest.raises(ValueError, match="mesh"):
+        TMonoVO(_port_cam(), Config(loop_closure=False),
+                mesh=mesh._replace(device=torch.device("cuda")), device="cpu")
