@@ -115,6 +115,12 @@ class SO3:
         self.wxyz = wxyz
 
     @classmethod
+    def identity(cls, batch: tuple = (), dtype=torch.float32, device=None) -> "SO3":
+        q = torch.zeros(batch + (4,), dtype=dtype, device=device)
+        q[..., 0].fill_(1.0)
+        return cls(q)
+
+    @classmethod
     def from_matrix(cls, m: torch.Tensor) -> "SO3":
         return cls(matrix_to_quat(m))
 
@@ -150,6 +156,28 @@ class SO3:
     def matrix(self) -> torch.Tensor:
         return quat_to_matrix(quat_normalize(self.wxyz))
 
+    def apply(self, v: torch.Tensor) -> torch.Tensor:
+        return quat_rotate(quat_normalize(self.wxyz), v)
+
+    def inverse(self) -> "SO3":
+        return SO3(quat_conjugate(self.wxyz))
+
+    def __matmul__(self, other: "SO3") -> "SO3":
+        return SO3(quat_multiply(self.wxyz, other.wxyz))
+
+    def normalize(self) -> "SO3":
+        return SO3(quat_normalize(self.wxyz))
+
+    @property
+    def batch_shape(self) -> torch.Size:
+        return self.wxyz.shape[:-1]
+
+    def __getitem__(self, idx) -> "SO3":
+        return SO3(self.wxyz[idx])
+
+    def __repr__(self):
+        return f"SO3(wxyz={self.wxyz})"
+
 
 # ---------------------------------------------------------------------------
 # SE3
@@ -168,6 +196,10 @@ class SE3:
         q = torch.zeros(batch + (4,), dtype=dtype, device=device)
         q[..., 0].fill_(1.0)
         return cls(q, torch.zeros(batch + (3,), dtype=dtype, device=device))
+
+    @classmethod
+    def from_rotation_translation(cls, R: torch.Tensor, t: torch.Tensor) -> "SE3":
+        return cls(matrix_to_quat(R), t)
 
     @classmethod
     def from_matrix(cls, m: torch.Tensor) -> "SE3":
@@ -223,6 +255,11 @@ class SE3:
         m[..., 3, 3].fill_(1.0)        # a fill: no host->device copy
         return m
 
+    def matrix34(self) -> torch.Tensor:
+        """[..., 3, 4] (R | t)."""
+        R = quat_to_matrix(quat_normalize(self.wxyz))
+        return torch.cat([R, self.t[..., :, None]], dim=-1)
+
     def apply(self, v: torch.Tensor) -> torch.Tensor:
         return quat_rotate(quat_normalize(self.wxyz), v) + self.t
 
@@ -241,6 +278,14 @@ class SE3:
     def normalize(self) -> "SE3":
         return SE3(quat_normalize(self.wxyz), self.t)
 
+    def retract(self, delta: torch.Tensor) -> "SE3":
+        """Left-multiplicative retraction: exp(delta) @ self (BA update)."""
+        return SE3.exp(delta) @ self
+
+    @property
+    def batch_shape(self) -> torch.Size:
+        return self.wxyz.shape[:-1]
+
     def params(self) -> torch.Tensor:
         """Flat [..., 7] (wxyz, t), the pose-table and checkpoint layout."""
         return torch.cat([self.wxyz, self.t], dim=-1)
@@ -252,3 +297,5 @@ class SE3:
     def __getitem__(self, idx) -> "SE3":
         return SE3(self.wxyz[idx], self.t[idx])
 
+    def __repr__(self):
+        return f"SE3(wxyz={self.wxyz}, t={self.t})"

@@ -240,8 +240,7 @@ def _triangulate_new(tracks: TrackState, kfs: KeyframeState, T_cur: SE3,
     T_ref = SE3(kfs.wxyz[ref_slot], kfs.t[ref_slot])
 
     def proj_mat(T: SE3):
-        Rt = torch.cat([T.rotation().matrix(), T.t[..., :, None]], dim=-1)
-        return torch.einsum("ij,...jk->...ik", K, Rt)
+        return torch.einsum("ij,...jk->...ik", K, T.matrix34())
 
     P_ref = proj_mat(T_ref)                        # [N, 3, 4]
     P_cur = proj_mat(T_cur).expand_as(P_ref)       # [N, 3, 4]
@@ -447,7 +446,7 @@ def _window_problem(kfs: KeyframeState, map_state: MapState, intr, dist=None):
     fixed = torch.zeros((K,), dtype=torch.bool, device=dev)
     fixed[oldest] = True
     fixed = fixed | ~kfs.valid
-    return make_problem(cams=SE3(kfs.wxyz, kfs.t), points=map_state.xyz,
+    return make_problem(cams=kfs.poses(), points=map_state.xyz,
                         intrinsics=intr, obs_cam=obs_cam, obs_pt=pt_idx,
                         obs_uv=obs_uv, obs_w=w, cam_fixed=fixed, dist=dist)
 

@@ -15,6 +15,9 @@ from typing import NamedTuple
 
 import torch
 
+from dr3_tpu_torch.geometry.lie import SE3
+
+
 class TrackState(NamedTuple):
     px: torch.Tensor        # [N, 2] current-frame pixel position
     ref_px: torch.Tensor    # [N, 2] pixel in the originating keyframe
@@ -62,6 +65,14 @@ class KeyframeState(NamedTuple):
                                       device=device),
                    obs_point=torch.full((k, n_tracks), -1, dtype=torch.int32,
                                         device=device))
+
+    def poses(self) -> SE3:
+        return SE3(self.wxyz, self.t)
+
+    @property
+    def n(self) -> torch.Tensor:
+        return self.valid.sum()
+
 
 class MapState(NamedTuple):
     xyz: torch.Tensor       # [P, 3] world positions

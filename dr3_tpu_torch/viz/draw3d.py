@@ -84,12 +84,10 @@ def render_map(trajectory: np.ndarray, points: Optional[np.ndarray] = None,
 
 def render_vo(vo, path: str = "slam_map.png") -> str:
     """Render a pipelines.vo.MonoVO state (trajectory + keyframes + map)."""
-    from dr3_tpu_torch.geometry.lie import SE3
-
     kf_mats = None
     valid = vo.kfs.valid.cpu().numpy()
     if valid.any():
-        kf_mats = SE3(vo.kfs.wxyz, vo.kfs.t).matrix().cpu().numpy()[valid]
+        kf_mats = vo.kfs.poses().matrix().cpu().numpy()[valid]
     pts = vo.map.xyz.cpu().numpy()[vo.map.valid.cpu().numpy()]
     traj = np.asarray(vo.trajectory) if vo.trajectory else np.zeros((0, 4, 4), np.float32)
     return render_map(traj, pts, kf_mats, path=path)

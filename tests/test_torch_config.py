@@ -53,6 +53,24 @@ def test_port_imports_neither_jax_nor_dr3_tpu():
     assert int(out.stdout.strip()) >= 20
 
 
+def test_long_sequence_run_imports_neither_jax_nor_dr3_tpu():
+    """A whole run of the long-sequence entry point (its imports inside the
+    functions included) in a fresh interpreter, on the CPU at 320x240,
+    leaves jax and dr3_tpu unimported."""
+    code = (
+        "import sys\n"
+        "from dr3_tpu_torch.tools import run_long_sequence as t\n"
+        "assert t.main(['--frames', '8', '--device', 'cpu']) == 0\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        " or m == 'dr3_tpu' or m.startswith('dr3_tpu.')]\n"
+        "assert not bad, bad\n"
+        "assert 'dr3_tpu_torch.pipelines.vo' in sys.modules\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert '"frames": 8' in out.stdout.splitlines()[-1]
+
+
 def test_port_sources_import_no_jax_pallas_or_compile():
     """The acceptance grep: no jax / dr3_tpu import, no Pallas, no
     torch.compile, no fused attention operator in the port or its smoke."""
