@@ -173,11 +173,30 @@ Phases (any failure raises, so the exit code is non-zero):
    one), positions within 1% of the path. Each part prints its frames/s,
    ATE and counters.
 
+10. entry points — the root ``__graft_entry__.py`` and ``bench.py`` as the
+   port runs them (dr3_tpu_torch/entry.py, dr3_tpu_torch/bench.py),
+   counters zeroed just before: (a) ``entry()``'s step on the card
+   against the same step on the CPU with the same numpy args
+   (tests/test_torch_entry.py's tolerances: pyramid 1e-6, valid masks
+   equal, positions of valid tracks 1e-3 px, pose 1e-4, cost 1e-4
+   relative), K1 once per call; the same on two rendered 1240x376 frames
+   of the lateral path (pose 1e-5, over 90% of 546 tracks valid, the pose
+   within 1e-2 of the rendered motion); then 120 frames chained as the
+   bench's frontend metric chains them in one StepGraph: one capture, 119
+   replays, K1 120 launches, the first 8 frames against the eager step
+   within 1e-4 px; (b) ``dryrun_multichip(1)`` and ``(4)`` in this process
+   on this card (4 point shards, the 2-level mesh, MonoVO with the mesh
+   against one device); (c) ``python -m dr3_tpu_torch.bench`` as a
+   subprocess at full width, depth cut to BENCH_DEPTH: exit code 0, one
+   JSON line in bench.py's contract, all five metrics non-null, no errors,
+   each child's kernels launched in its timed window (BENCH_PATHS), the
+   frontend's one capture and its replay count; the line is printed.
+
 The kernel table (launches per general frame or per panorama, the VO rows
 also per general frame of phase 9(a), device us, bound, share of bound,
 library us; the legacy path's two rows per legacy frame) and the legacy
 path's launches are printed before the last three lines of stdout: a JSON
-object of per-kernel results (launches: phases 4, 5 and 9(a) together;
+object of per-kernel results (launches: phases 4, 5, 9(a) and 10 together;
 K4's ``remap`` timed at the descriptor patches, ``warp`` at the pair
 canvas; the paste is a row of the table only), the card's name and power
 limit, and ``{"ok": true, "device": {...}}``. Imports nothing of JAX or
@@ -206,6 +225,8 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
+from dr3_tpu_torch import bench  # noqa: E402
+from dr3_tpu_torch import entry as entry_mod  # noqa: E402
 from dr3_tpu_torch.geometry.lie import SE3  # noqa: E402
 from dr3_tpu_torch.io.image import to_gray  # noqa: E402
 from dr3_tpu_torch.models.camera import Pinhole  # noqa: E402
@@ -222,6 +243,7 @@ from dr3_tpu_torch.tools import run_long_sequence as long_seq  # noqa: E402
 from dr3_tpu_torch.tools.cudatime import cuda_ms, device_ms, per_launch, profile  # noqa: E402
 from dr3_tpu_torch.utils import synth  # noqa: E402
 from dr3_tpu_torch.utils.config import Config  # noqa: E402
+from dr3_tpu_torch.utils.cudagraph import StepGraph  # noqa: E402
 from dr3_tpu_torch.utils.synth import lateral_path, make_textures, render_scene  # noqa: E402
 from dr3_tpu_torch.viz.ate import ate_rmse  # noqa: E402
 
@@ -265,6 +287,18 @@ LONG_MAX_POINTS = 1536
 LONG_COUNTERS = (lk.track_pyramid, lk.track_level, lk.align_to_templates, lk.sample_patches,
                  sa.sparse_align, corners.corner_response_pyramid, corners.corner_response,
                  warp.remap_xy)
+# phase 10: entry()'s step chained as bench.py's frontend metric chains it,
+# and the port bench at full width with its depth cut to fit this run
+ENTRY_CHAIN = 120
+ENTRY_EAGER = 8      # the chain's first frames, run eagerly against the graph
+BENCH_DEPTH = dict(BENCH_FRAMES="30", BENCH_REPS="3", BENCH_PIPELINE_FRAMES="160")
+# the kernels each bench metric's timed window must launch (wrapper names;
+# the BA metrics run none)
+BENCH_PATHS = {"frontend": ("track_pyramid",),
+               "pipeline": ("track_pyramid", "align_to_templates", "sparse_align",
+                            "sample_patches", "corner_response_pyramid", "remap_xy"),
+               "panorama": ("track_pyramid", "corner_response_pyramid", "remap_xy",
+                            "warp_spherical", "warp_perspective")}
 DEV = "cuda"
 # the kernels' names in a profile: kernel or K4 form -> its __global__
 KERNEL_NAMES = {"lk_pyramid": "lk_pyramid_kernel", "lk_align": "lk_align_kernel",
@@ -989,13 +1023,7 @@ def phase_cpu_reference():
 def render_panorama_cases(seed=SEED):
     """Views of a textured sphere for the panorama phase (numpy, host)."""
     rng = np.random.default_rng(seed + 2)
-    lon0, lat0 = -1.0, -0.6
-    tex = synth.sphere_texture(rng, PAN_F, lon=(lon0, (PAN_N - 1) * PAN_YAW + 1.0),
-                               lat=(lat0, -lat0))
-    translate = dict(tex=tex, lon0=lon0, lat0=lat0, views=[
-        synth.render_sphere_view(tex, PAN_F, lon0, lat0, PAN_F, PAN_F, PAN_W / 2,
-                                 PAN_H / 2, PAN_W, PAN_H, PAN_YAW * k)
-        for k in range(PAN_N)])
+    translate = synth.panorama_views(rng, PAN_N, PAN_W, PAN_H, PAN_F, PAN_YAW)
     cam = Pinhole.kitti()
     K = tuple(float(v) for v in (cam.fx, cam.fy, cam.cx, cam.cy))
     hlon0, hlat0 = -1.0, -0.5
@@ -2339,6 +2367,150 @@ def phase_long(card):
     return launches, n_general
 
 
+def entry_step_check(tag, got, want, pos_tol, pose_tol):
+    """The card's step outputs against the CPU's (tests/test_torch_entry.py's
+    tolerances): pyramid 1e-6, valid masks equal, positions of valid tracks,
+    pose, cost 1e-4 relative. Returns the valid count."""
+    pyr = max(float((a.cpu() - b).abs().max()) for a, b in zip(got[0], want[0]))
+    v, vw = got[2].cpu(), want[2]
+    if pyr > 1e-6 or not torch.equal(v, vw):
+        raise AssertionError(f"entry {tag}: pyramid |d| {pyr}, valid {int(v.sum())} "
+                             f"against {int(vw.sum())} ({int((v != vw).sum())} differ)")
+    dpos = float((got[1].cpu() - want[1])[v].abs().max()) if v.any() else 0.0
+    dpose = max(float((got[k].cpu() - want[k]).abs().max()) for k in (3, 4))
+    c, cw = float(got[5]), float(want[5])
+    if dpos > pos_tol or dpose > pose_tol or abs(c - cw) > 1e-4 * max(abs(cw), 1.0):
+        raise AssertionError(f"entry {tag}: |d pos| {dpos}, |d pose| {dpose}, cost {c} "
+                             f"against {cw}")
+    log(f"[entry] {tag}: card vs CPU: {int(v.sum())} of {v.numel()} valid in both, max |d "
+        f"pos| {dpos:.3g}, max |d pose| {dpose:.3g}, cost {c:.4f} (CPU {cw:.4f})")
+    return int(v.sum())
+
+
+def phase_entry(card):
+    """Phase 10 (module docstring): (a) entry()'s step, card against CPU,
+    and chained in one CUDA graph; (b) dryrun_multichip(1) and (4); (c) the
+    port bench as a subprocess. Returns the launches of every kernel wrapper
+    over the phase: (a)-(b) in this process (counters zeroed just before)
+    plus each bench child's timed window."""
+    t_phase = time.perf_counter()
+    wrappers = bench.kernel_wrappers()
+    torch.cuda.synchronize()
+    for c in wrappers.values():
+        c.launches = 0
+    # (a) the step on its example inputs and on a rendered pair
+    step, args = entry_mod.entry(device=DEV)
+    cpu_step, cpu_args = entry_mod.entry(device="cpu")
+    for i, (a, b) in enumerate(zip(args[1:], cpu_args[1:])):
+        if not torch.equal(a.cpu(), b):
+            raise AssertionError(f"entry: card arg {i + 1} differs from the CPU's")
+    got = step(*args)
+    torch.cuda.synchronize()
+    if lk.track_pyramid.launches != 1:
+        raise AssertionError(f"entry: K1 launched {lk.track_pyramid.launches} times in a step")
+    entry_step_check("example inputs", got, cpu_step(*cpu_args), 1e-3, 1e-4)
+    frames, host, T1 = synth.entry_pair()
+    levels = len(args[0])
+    dev_in = (tuple(pyramid.build_pyramid(torch.from_numpy(frames[0]).to(DEV), levels)),
+              torch.from_numpy(frames[1]).to(DEV), *[torch.from_numpy(a).to(DEV) for a in host])
+    cpu_in = (tuple(pyramid.build_pyramid(torch.from_numpy(frames[0]), levels)),
+              torch.from_numpy(frames[1]), *[torch.from_numpy(a) for a in host])
+    got = step(*dev_in)
+    n_valid = entry_step_check("rendered pair", got, cpu_step(*cpu_in), 1e-3, 1e-5)
+    dt = float(np.abs(got[4].cpu().numpy() - T1.t).max())
+    if n_valid < 0.9 * host[0].shape[0] or dt > 1e-2:
+        raise AssertionError(f"entry rendered pair: {n_valid} valid, |d t| to truth {dt}")
+    if lk.track_pyramid.launches != 2:
+        raise AssertionError(f"entry: K1 launched {lk.track_pyramid.launches} times in 2 steps")
+    # chained as bench.py's frontend metric chains it, one graph
+    L = levels
+    graph = StepGraph(entry_mod.graph_step(step, L), (lk.track_pyramid,))
+    h, w = args[1].shape
+    lo = torch.tensor([25.0, 25.0], device=DEV)
+    hi = torch.tensor([w - 25.0, h - 25.0], device=DEV)
+    chain_frames = [args[0][0], args[1]]
+
+    def chain(run, n):
+        """(positions after frame ENTRY_EAGER, outputs of the last frame)."""
+        pyr, px, wxyz, t = args[0], args[2], args[7], args[8]
+        for i in range(n):
+            o = run(*pyr, chain_frames[i % 2], px, *args[3:7], wxyz, t)
+            pyr, px = o[:L], torch.clamp(o[L], lo, hi)
+            wxyz, t = o[L + 2], o[L + 3]
+            if i == ENTRY_EAGER - 1:
+                early = px
+        return early, o
+
+    k0 = lk.track_pyramid.launches
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    px_g, out_g = chain(graph, ENTRY_CHAIN)
+    cost = float(out_g[-1])
+    wall = time.perf_counter() - t0
+    k1 = lk.track_pyramid.launches - k0
+    if graph.captures != 1 or graph.replays != ENTRY_CHAIN - 1 or k1 != ENTRY_CHAIN:
+        raise AssertionError(f"entry chain: {graph.captures} captures, {graph.replays} "
+                             f"replays, K1 {k1} launches over {ENTRY_CHAIN} frames")
+    px_e, _ = chain(entry_mod.graph_step(step, L), ENTRY_EAGER)
+    dpx = float((px_g - px_e).abs().max())
+    if dpx > 1e-4 or not torch.isfinite(out_g[L]).all():
+        raise AssertionError(f"entry chain: graph against eager |d px| {dpx} after "
+                             f"{ENTRY_EAGER} frames")
+    log(f"[entry] {ENTRY_CHAIN} chained frames in one graph: 1 capture, {graph.replays} "
+        f"replays, K1 {k1} launches, {1e3 * wall / ENTRY_CHAIN:.3f} ms a frame (host wall "
+        f"with the capture); graph vs eager after {ENTRY_EAGER} frames |d px| {dpx:.3g} "
+        f"(bit-equal: {dpx == 0.0}), "
+        f"last cost {cost:.4f}")
+    # (b) the distributed dry runs, one process on one card
+    for n in (1, 4):
+        t0 = time.perf_counter()
+        entry_mod.dryrun_multichip(n, device=DEV)
+        log(f"[entry] dryrun_multichip({n}) {time.perf_counter() - t0:.1f} s")
+    torch.cuda.synchronize()
+    launches = {name: c.launches for name, c in wrappers.items()}
+    log(f"[entry] launches in (a)-(b): {json.dumps(launches)}")
+    # (c) the port bench at full width, its depth cut
+    env = {k: v for k, v in os.environ.items() if not k.startswith("BENCH_")}
+    env.update(BENCH_DEPTH)
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "dr3_tpu_torch.bench"], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=900)
+    wall = time.perf_counter() - t0
+    for line in proc.stderr.splitlines():
+        if line.startswith("[bench]"):
+            log(line)
+    if proc.returncode != 0:
+        raise AssertionError(f"bench rc={proc.returncode}: {proc.stderr[-3000:]}")
+    lines = proc.stdout.strip().splitlines()
+    log(f"[bench] {' '.join(f'{k}={v}' for k, v in BENCH_DEPTH.items())} "
+        f"python -m dr3_tpu_torch.bench ({wall:.1f} s): {lines[-1]}")
+    out = json.loads(lines[-1])
+    if len(lines) != 1 or set(out) != {"metric", "value", "unit", "vs_baseline", "extra"}:
+        raise AssertionError(f"bench: not one JSON line in bench.py's contract: {lines}")
+    extra = out["extra"]
+    if extra.get("errors"):
+        raise AssertionError(f"bench errors: {extra['errors']}")
+    values = [out["value"]] + [extra.get(k) for k in (
+        "vo_frontend_frames_per_sec_scan", "ba_window_lm_iters_per_sec",
+        "ba_bal_lm_iters_per_sec", "panorama_images_per_sec")]
+    if not all(v is not None and v > 0 for v in values):
+        raise AssertionError(f"bench: a metric is null or zero: {values}")
+    for name, need in BENCH_PATHS.items():
+        got = extra[f"{name}_detail"]["launches"]
+        if not all(got[k] > 0 for k in need):
+            raise AssertionError(f"bench {name}: launches {got}, need {need}")
+    fe = extra["frontend_detail"]
+    n_fe = int(BENCH_DEPTH["BENCH_FRAMES"])
+    if fe["captures"] != 1 or fe["replays"] != n_fe * (int(BENCH_DEPTH["BENCH_REPS"]) + 1) - 1:
+        raise AssertionError(f"bench frontend: {fe['captures']} captures, {fe['replays']} "
+                             f"replays")
+    for name in ("frontend", "window_ba", "bal_ba", "panorama", "pipeline"):
+        for k, v in extra[f"{name}_detail"]["launches"].items():
+            launches[k] += v
+    log(f"[phase 10] {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def print_table(rows, per, in_path, card):
     """The kernel table: launches on its path's run per general frame (VO)
     or per panorama (K4); device us per launch at the row's shape (100
@@ -2386,6 +2558,7 @@ def main():
     phase_bal(card, slice_run["vo"])
     legacy_launches, legacy_rows, legacy_in_path = phase_8(card, frames, gt, slice_run, loop_vo)
     long_launches, long_general = phase_long(card)
+    entry_launches = phase_entry(card)
 
     # dr3_remap and dr3_warp each replace both TPU warp kernels: the
     # Catmull-Smith passes K4a and K4b compose into one direct sampler
@@ -2449,6 +2622,16 @@ def main():
                       f"{long_general}")
     per["remap_xy (loop descriptors)"] += (f"; {long_counts['remap'] / long_general:.3f} per "
                                            f"general frame over the long run's {long_general}")
+    # phase 10's launches: its in-process steps and the bench children's
+    # timed windows, by wrapper name
+    e = entry_launches
+    entry_counts = {"corner_response": e["corner_response_pyramid"] + e["corner_response"],
+                    "corner_response_pyramid": e["corner_response_pyramid"],
+                    "lk_pyramid": e["track_pyramid"] + e["track_level"],
+                    "lk_align": e["align_to_templates"],
+                    "sample_patches": e["sample_patches"], "sparse_align": e["sparse_align"],
+                    "remap": sum(e[c.__name__] for c in K4_COUNTERS["remap"]),
+                    "warp": sum(e[c.__name__] for c in K4_COUNTERS["warp"])}
     print_table({**{k: results[k] for k in vo_rows}, **pano_rows, **k4_rows, **loop_rows,
                  **legacy_rows}, per, in_path, card)
     log(f"[legacy] launches over its {LEGACY_N} frames (the VO path's are the JSON line's): "
@@ -2471,7 +2654,7 @@ def main():
     for name, (src, replaces) in meta.items():
         r = results[name]
         kernels.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
-                        "launches": counts[name] + long_counts[name],
+                        "launches": counts[name] + long_counts[name] + entry_counts[name],
                         "max_abs_err": r["max_abs_err"],
                         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": r["library_ms"],

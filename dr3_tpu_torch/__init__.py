@@ -12,7 +12,9 @@ KITTI sequences, format-2 checkpoints and the map rendering), the
 stitch/panorama path (``pipelines.stitch``, ``pipelines.panorama``,
 ``run_panorama``), BAL bundle adjustment (``io.bal``, ``ba.snavely``: the
 exact 9-parameter objective with the square-root dense Schur and
-matrix-free PCG solves; ``ba.lm``, the generic dense LM; ``run_ba``), and
+matrix-free PCG solves; ``ba.lm``, the generic dense LM; ``run_ba``), the
+repository's root entry points (``entry``: the VO tracking step and the
+distributed dry run; ``bench``: the benchmark's one JSON line), and
 their hand-written CUDA kernels (``csrc/lk.cu``, ``csrc/sample.cu``,
 ``csrc/detect.cu``, ``csrc/warp.cu``), built with nvcc for ``sm_90a`` on
 first use (``ops/_native.py``). On a CPU tensor each kernel wrapper runs

@@ -192,6 +192,44 @@ def sphere_homography(fx: float, fy: float, cx: float, cy: float, yaw: float) ->
     return K @ _yaw_matrix(yaw) @ np.linalg.inv(K)
 
 
+def entry_pair(seed: int = 7):
+    """Two consecutive frames for the VO tracking step of
+    ``dr3_tpu_torch.entry``: frames 0 and 1 of the lateral path (0.08
+    units apart) at 1240x376 with the KITTI camera, a 42 x 13 grid of 546
+    tracks on frame 0 and the world points they see. Returns (the two
+    frames, the step's inputs after the image as numpy arrays — track_px,
+    track_valid, track_point, map_xyz, map_valid, pose_wxyz, pose_t — and
+    frame 1's true pose)."""
+    from types import SimpleNamespace
+
+    cam = SimpleNamespace(width=1240, height=376, fx=718.856, fy=718.856, cx=607.1928,
+                          cy=185.2157)
+    tn, tf = make_textures(np.random.default_rng(seed))
+    poses, _ = lateral_path(2, step=0.08)
+    frames = [render_scene(cam, T, tn, tf) for T in poses]
+    xs, ys = np.meshgrid(np.linspace(30, 1210, 42), np.linspace(30, 346, 13))
+    px = np.stack([xs.ravel(), ys.ravel()], -1).astype(np.float32)
+    n = px.shape[0]
+    inputs = (px, np.ones(n, bool), np.arange(n, dtype=np.int32),
+              scene_points(cam, poses[0], px), np.ones(n, bool),
+              np.asarray([1.0, 0.0, 0.0, 0.0], np.float32), np.zeros(3, np.float32))
+    return frames, inputs, poses[1]
+
+
+def panorama_views(rng, n: int = 8, width: int = 640, height: int = 480,
+                   focal: float = 600.0, yaw: float = 0.35) -> dict:
+    """The TRANSLATE panorama case of the benchmark and the smoke run:
+    ``n`` RGB views [height, width, 3] of a textured sphere, ``yaw`` rad
+    apart, from a camera of focal ``focal`` at the centre (bench.py's
+    configuration: 8 views of 640x480, f 600). Returns dict(tex, lon0,
+    lat0, views); the texture is drawn from ``rng`` first."""
+    lon0, lat0 = -1.0, -0.6
+    tex = sphere_texture(rng, focal, lon=(lon0, (n - 1) * yaw + 1.0), lat=(lat0, -lat0))
+    views = [render_sphere_view(tex, focal, lon0, lat0, focal, focal, width / 2, height / 2,
+                                width, height, yaw * k) for k in range(n)]
+    return dict(tex=tex, lon0=lon0, lat0=lat0, views=views)
+
+
 def _bilinear_periodic(tex, u, v):
     """Periodic (tiled) bilinear texture lookup."""
     th, tw = tex.shape

@@ -36,16 +36,25 @@ def test_config_overrides_match():
 
 def test_port_imports_neither_jax_nor_dr3_tpu():
     """Every module of dr3_tpu_torch, and chip_smoke.py, import cleanly in a
-    fresh interpreter without pulling in jax or dr3_tpu."""
+    fresh interpreter without pulling in jax or dr3_tpu; the port's entry
+    points (entry.py's step, bench.py's window problem, which import
+    inside their functions) run there without pulling in them or the
+    repository's root entry points, bench.py and __graft_entry__.py."""
     code = (
         "import importlib, pkgutil, sys\n"
+        "import numpy as np\n"
         "import dr3_tpu_torch\n"
         "names = [m.name for m in pkgutil.walk_packages(dr3_tpu_torch.__path__, 'dr3_tpu_torch.')]\n"
         "for n in names: importlib.import_module(n)\n"
         "import chip_smoke\n"
+        "from dr3_tpu_torch import bench, entry\n"
+        "step, args = entry.entry(device='cpu')\n"
+        "step(*args)\n"
+        "bench._window_problem(np.random.default_rng(0), n_cams=3, n_pts=40, n_tracks=20)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
-        " or m == 'dr3_tpu' or m.startswith('dr3_tpu.')]\n"
+        " or m == 'dr3_tpu' or m.startswith('dr3_tpu.') or m in ('bench', '__graft_entry__')]\n"
         "assert not bad, bad\n"
+        "assert 'dr3_tpu_torch.entry' in names and 'dr3_tpu_torch.bench' in names\n"
         "print(len(names))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
@@ -72,11 +81,14 @@ def test_long_sequence_run_imports_neither_jax_nor_dr3_tpu():
 
 
 def test_port_sources_import_no_jax_pallas_or_compile():
-    """The acceptance grep: no jax / dr3_tpu import, no Pallas, no
+    """The acceptance grep: no jax / dr3_tpu / root bench.py or
+    __graft_entry__.py import, no Pallas, no
     torch.compile, no fused attention operator in the port or its smoke."""
     import re
 
-    banned_import = re.compile(r"^\s*(import jax|from jax|import dr3_tpu\b|from dr3_tpu\b)")
+    banned_import = re.compile(r"^\s*(import jax|from jax|import dr3_tpu\b|from dr3_tpu\b"
+                               r"|import bench\b|from bench\b|import __graft_entry__"
+                               r"|from __graft_entry__)")
     pallas_import = re.compile(r"^\s*(import|from)\s+\S*pallas")
     files = [os.path.join(ROOT, "chip_smoke.py")]
     for dirpath, _, names in os.walk(os.path.join(ROOT, "dr3_tpu_torch")):

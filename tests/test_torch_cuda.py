@@ -807,3 +807,27 @@ def test_step_graph_capture_raises_on_a_sync(dev):
     assert g.graph is None and g.captures == 0
     torch.cuda.synchronize()
     assert float((x * 2).sum()) == 16.0       # the card still works
+
+
+def test_entry_step_graph_replays_match_eager(dev):
+    """entry()'s step (dr3_tpu_torch/entry.py) in one StepGraph, chained
+    over 6 frames as the bench's frontend metric chains it: one capture,
+    5 replays, K1 counted once per frame, each frame's outputs bit-equal
+    to the eager step's on the same inputs."""
+    from dr3_tpu_torch.entry import entry, graph_step
+    from dr3_tpu_torch.utils.cudagraph import StepGraph
+
+    step, args = entry(device=dev)
+    n_levels = len(args[0])
+    flat = graph_step(step, n_levels)
+    lk.track_pyramid.launches = 0
+    g = StepGraph(flat, (lk.track_pyramid,))
+    pyr, px = args[0], args[2]
+    for i in range(6):
+        x = (*pyr, (args[0][0], args[1])[i % 2], px, *args[3:])
+        got, want = g(*x), flat(*x)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+        pyr, px = got[:n_levels], got[n_levels].clamp(25.0, 351.0)
+    assert (g.captures, g.replays) == (1, 5)
+    assert lk.track_pyramid.launches == 12      # 6 in the graph, 6 eager

@@ -15,7 +15,13 @@ and constants compared by presence). Only the names in ``OMITTED`` may be
 missing, each with its reason.
 
 An entry of either list that nothing uses fails too, so the lists stay
-exact."""
+exact.
+
+Root entry points: the repository's ``__graft_entry__.py`` and ``bench.py``
+map to ``dr3_tpu_torch.entry`` and ``dr3_tpu_torch.bench``; their public
+names and signatures are compared the same way (``ROOT_ALLOWED``), and
+every ``dr3_tpu`` name they import exists in the port's namesake module
+unless ``ROOT_OMITTED`` lists it with its reason."""
 
 import ast
 import dataclasses
@@ -119,6 +125,24 @@ OMITTED = {
 }
 # dr3_tpu source modules with no namesake, by design
 NO_NAMESAKE = ("ops.pallas", "utils.cache")
+
+# the repository's root entry points -> their counterparts in the port
+ROOT_MODULES = {"__graft_entry__": "entry", "bench": "bench"}
+ROOT_ALLOWED = {
+    "entry:entry": [_DEVICE],
+    "entry:dryrun_multichip": [_MESH_DEVICE],
+}
+_SCAN = ("a column of the packed rows of the JAX package's scan program (read with "
+         "MonoVO._dispatch_scan / _adopt_carry for bench.py's fps_device_bound); the port "
+         "has no scan program, so its bench reports fps_device_bound null")
+# "root:dr3_tpu module:name" a root entry point imports that the port leaves out
+ROOT_OMITTED = {
+    "bench:dr3_tpu.utils.cache:enable_persistent_cache": "the XLA compile cache; the port "
+                                                         "compiles no programs "
+                                                         "(NO_NAMESAKE)",
+    "bench:dr3_tpu.pipelines.vo:_ROW_CONSUMED": _SCAN,
+    "bench:dr3_tpu.pipelines.vo:_ROW_REASON": _SCAN,
+}
 
 
 def _jax_modules():
@@ -272,11 +296,11 @@ def _params(fn):
     return [(p.name, _default(p.default)) for p in inspect.signature(fn).parameters.values()]
 
 
-def _apply_allowed(key, port, jax):
+def _apply_allowed(key, port, jax, allowed=ALLOWED):
     """The port's and JAX's parameter lists after the allowed differences
-    of ``key``; returns (port, jax, rules used)."""
+    of ``key`` in ``allowed``; returns (port, jax, rules used)."""
     used = []
-    for rule in ALLOWED.get(key, []):
+    for rule in allowed.get(key, []):
         kind, name = rule[0], rule[1]
         if kind == "rename" and any(n == name for n, _ in port):
             port = [(rule[2] if n == name else n, d) for n, d in port]
@@ -341,3 +365,62 @@ def test_ba_entry_points_match_the_reference():
         dc, dp, dg = schur_core.solve_schur(blocks, torch.tensor(1e-3), pt.cam_fixed,
                                             method=method)
         assert dc.shape == (3, 6) and dp.shape == (20, 3) and dg.shape == (4,)
+
+
+@pytest.mark.parametrize("root", sorted(ROOT_MODULES))
+def test_root_entry_point_is_ported(root):
+    """Every public function, class and constant of the root module exists
+    in its port counterpart with the same parameters (after
+    ``ROOT_ALLOWED``)."""
+    jm = importlib.import_module(root)
+    name = ROOT_MODULES[root]
+    tm = importlib.import_module("dr3_tpu_torch." + name)
+    want = _surface(jm) | _module_constants("", root)
+    assert want, root
+    missing = {q for q in want if not _has(tm, q)}
+    assert not missing, (root, "missing from the port:", sorted(missing))
+    tf, jf = _public(tm), _public(jm)
+    keys = set()
+    for qual in sorted(set(jf)):
+        key = f"{name}:{qual}"
+        keys.add(key)
+        port, jax, used = _apply_allowed(key, _params(tf[qual]), _params(jf[qual]),
+                                         ROOT_ALLOWED)
+        assert port == jax, (key, port, jax)
+        assert len(used) == len(ROOT_ALLOWED.get(key, [])), (key, "unused entry", used)
+    assert {k for k in ROOT_ALLOWED if k.startswith(name + ":")} <= keys
+
+
+def _dr3_tpu_imports(root: str) -> set:
+    """(module, name) of every ``from dr3_tpu... import name`` in the root
+    module's source, inside its functions included."""
+    with open(os.path.join(ROOT, root + ".py")) as f:
+        tree = ast.parse(f.read())
+    return {(node.module, alias.name) for node in ast.walk(tree)
+            if isinstance(node, ast.ImportFrom) and node.module
+            and (node.module == "dr3_tpu" or node.module.startswith("dr3_tpu."))
+            for alias in node.names}
+
+
+@pytest.mark.parametrize("root", sorted(ROOT_MODULES))
+def test_root_entry_point_imports_are_ported(root):
+    """Every dr3_tpu name the root module reaches for exists in the port's
+    namesake module, apart from ``ROOT_OMITTED``'s, each of which the
+    module does import and the port indeed lacks."""
+    imports = _dr3_tpu_imports(root)
+    assert imports, root
+    omitted = {k for k in ROOT_OMITTED if k.startswith(root + ":")}
+    seen = set()
+    for mod, name in sorted(imports):
+        key = f"{root}:{mod}:{name}"
+        port_mod = "dr3_tpu_torch" + mod[len("dr3_tpu"):]
+        try:
+            present = hasattr(importlib.import_module(port_mod), name)
+        except ModuleNotFoundError:
+            present = False
+        if key in ROOT_OMITTED:
+            seen.add(key)
+            assert not present, (key, "omitted but present")
+        else:
+            assert present, (key, f"{port_mod} lacks {name}")
+    assert seen == omitted, ("unused ROOT_OMITTED entries", sorted(omitted - seen))
