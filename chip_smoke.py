@@ -210,12 +210,19 @@ Phases (any failure raises, so the exit code is non-zero):
    closures at the same frames and relocalisations, positions within
    1e-5 of the path (bit-equality printed), the same window BAs and CG
    iterations, equal launch counts for every kernel (the program's warm-up
-   launches, its set-up, taken out), one program instantiated per run; (d)
+   launches, its set-up, taken out), one program instantiated per run, no
+   keyframe handed to the host for its window BA (no mesh); (d)
    host synchronisations per ``process_batch`` call of 16 frames after the
    first, counted by torch.cuda.set_sync_debug_mode: exactly one per
-   event-free batch (no read per keyframe or per CG iteration). A program
-   that fails to build, capture or launch raises. The whole smoke's wall
-   time is its ``[done]`` line.
+   event-free batch (no read per keyframe or per CG iteration); (e) the
+   dense window solves, ``Config(ba_solver=...)`` "zexplicit" and
+   "explicit", over (a)'s frames: (a)'s gates with bit-equal positions,
+   window BAs inside the loop (the dense camera step and its Cholesky in
+   the program's LM pieces) and no CG iteration, then (d) over the same
+   frames out and back, with at least one event-free batch holding a
+   window BA that synchronised once. A program that fails to build,
+   capture or launch raises. The whole smoke's wall time is its ``[done]``
+   line.
 
 The kernel table (launches per general frame or per panorama, the VO rows
 also per general frame of phase 9(a), device us, bound, share of bound,
@@ -2559,16 +2566,19 @@ def phase_entry(card):
     return launches
 
 
-def scan_pair(tag, cfg, frames, gt, card):
+def scan_pair(tag, cfg, frames, gt, card, bit_equal=False):
     """One sequence through per-frame ``process`` and through
     ``process_batch`` (the loop program) on the card, counters zeroed
     before each: the same decisions, keyframes, closures at the same
-    frames and relocalisations, positions within 1e-5 of the path, equal
-    launch counts for every kernel (the program's warm-up launches, its
-    set-up, taken out), one program instantiated. Returns (the batched
-    driver, its launches, the two walls)."""
+    frames and relocalisations, positions within 1e-5 of the path (equal
+    bits with ``bit_equal``), equal launch counts for every kernel (the
+    program's warm-up launches, its set-up, taken out), one program
+    instantiated, no keyframe handed to the host for its window BA
+    (``_REASON_KF_BA``: no mesh). Returns (the batched driver, its
+    launches, the two walls, the window BAs that ran inside the loop)."""
     cam = Pinhole.kitti()
     runs, launches, walls = {}, {}, {}
+    rows = []
     for mode in ("per-frame", "batched"):
         for c in LONG_COUNTERS:
             c.launches = 0
@@ -2581,6 +2591,14 @@ def scan_pair(tag, cfg, frames, gt, card):
             return close(my_slot, cand, ver)
 
         vo._close_loop = spy
+        if mode == "batched":
+            consume = vo._consume_rows
+
+            def seen(block, consume=consume):
+                rows.extend(r for r in block if r[vo_mod._ROW_CONSUMED] > 0.5)
+                return consume(block)
+
+            vo._consume_rows = seen
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         if mode == "batched":
@@ -2606,10 +2624,14 @@ def scan_pair(tag, cfg, frames, gt, card):
     d = float(np.abs(pf.positions() - bt.positions()).max())
     bit = np.array_equal(pf.positions(), bt.positions())
     n_rows = sum(1 for s in bt.stats if s.stage == "general")
-    log(f"[scan] {tag}: {len(frames)} frames 1240x376, per-frame {walls['per-frame']:.2f} s, "
+    in_loop = int(sum(r[vo_mod._ROW_BA_IN_LOOP] for r in rows))
+    deferred = sum(int(r[vo_mod._ROW_REASON]) == vo_mod._REASON_KF_BA for r in rows)
+    log(f"[scan] {tag}: {len(frames)} frames 1240x376, ba_solver {cfg.ba_solver}, per-frame "
+        f"{walls['per-frame']:.2f} s, "
         f"process_batch {walls['batched']:.2f} s ({prog.program.launches} program launches, "
         f"{bt.monitor['scan_fetch'].n} reads of rows, build {prog.build_s:.2f} s); "
-        f"{bt.kf_count} keyframes, {bt.n_window_ba} window BAs ({bt.n_cg_iters} CG "
+        f"{bt.kf_count} keyframes, {bt.n_window_ba} window BAs ({in_loop} in the loop, "
+        f"{deferred} deferred to the host; {bt.n_cg_iters} CG "
         f"iterations, {pf.n_cg_iters} per-frame), closures at {bt_closed}, "
         f"{bt.n_relocalizations} relocalizations; max |d position| {d:.3g} of a "
         f"{length:.3f}-unit path, bit-equal {bit}; ATE {100 * a_pf / length:.3f}% ({card})")
@@ -2618,41 +2640,24 @@ def scan_pair(tag, cfg, frames, gt, card):
     if not same:
         raise AssertionError(f"[scan] {tag}: process_batch decides otherwise than process: "
                              f"closures {pf_closed} / {bt_closed}")
-    if not d <= 1e-5 * length:
+    if not d <= 1e-5 * length or (bit_equal and not bit):
         raise AssertionError(f"[scan] {tag}: positions differ by {d} (path {length})")
     if launches["batched"] != launches["per-frame"]:
         raise AssertionError(f"[scan] {tag}: launch counts differ")
     if bt.n_cg_iters != pf.n_cg_iters or n_rows == 0:
         raise AssertionError(f"[scan] {tag}: CG iterations {bt.n_cg_iters} vs {pf.n_cg_iters}")
-    return bt, launches["batched"], walls
+    if deferred:
+        raise AssertionError(f"[scan] {tag}: {deferred} keyframes handed to the host for their "
+                             f"window BA without a mesh")
+    return bt, launches["batched"], walls, in_loop
 
 
-def phase_scan(card, frames, gt):
-    """Phase 11: the device-resident frame loop (module docstring)."""
-    t_phase = time.perf_counter()
-    cfg = Config()
-    # (a) phase 4's frames under Config(): every batch event-free
-    bt, launches, _ = scan_pair("slice", cfg, frames, gt, card)
-    if bt.n_window_ba < 3 or "scan_dispatch" not in bt.monitor.timers:
-        raise AssertionError(f"[scan] slice: {bt.n_window_ba} window BAs through the loop")
-    # (b) phase 4b's out-and-back: a loop candidate early-outs to the host
-    loop_frames = list(frames[:N_OUT]) + list(frames[N_OUT - 1::-1])
-    loop_gt = np.concatenate([gt[:N_OUT], gt[N_OUT - 1::-1]])
-    lp, loop_launches, _ = scan_pair("loop", Config(**LOOP_GATES), loop_frames, loop_gt, card)
-    if lp.n_loop_closures < 1:
-        raise AssertionError("[scan] loop: no closure through process_batch")
-    # (c) a relocalisation mid-batch: four black frames after frame 12
-    black = [np.zeros_like(frames[0])] * 4
-    rl, reloc_launches, _ = scan_pair("relocalize", Config(loop_closure=False),
-                                      list(frames[:13]) + black + list(frames[13:28]),
-                                      np.concatenate([gt[:13], np.repeat(gt[12:13], 4, 0),
-                                                      gt[13:28]]), card)
-    if rl.n_relocalizations < 1:
-        raise AssertionError("[scan] relocalize: no relocalization")
-    # (d) host synchronisations: one per event-free batch of 16 frames, the
-    # program built by the first batch, counted from the second; the slice's
-    # frames out and back (no closure: Config()'s 100-frame gap)
-    seq = list(frames) + list(frames[::-1])
+def scan_syncs(tag, cfg, seq):
+    """Host synchronisations per ``process_batch`` call of
+    ``cfg.frames_per_dispatch`` frames, counted by
+    torch.cuda.set_sync_debug_mode, the program built by the first batch
+    and counted from the second. Returns (the driver, syncs per batch,
+    whether each was event-free, the window BAs each ran)."""
     vo = MonoVO(Pinhole.kitti(), cfg, device="cuda")
     i = 0
     while vo.stage is not Stage.GENERAL or vo.pyr_prev is None:
@@ -2660,10 +2665,11 @@ def phase_scan(card, frames, gt):
         i += 1
     vo.process_batch(seq[i:i + cfg.frames_per_dispatch])
     i += cfg.frames_per_dispatch
-    syncs, clean = [], []
+    syncs, clean, bas = [], [], []
     while i + cfg.frames_per_dispatch <= len(seq):
         n_host = (vo.n_relocalizations, vo.n_loop_closures, vo.n_compactions,
                   vo.n_db_compactions)
+        n_ba = vo.n_window_ba
         stacks = []
 
         def show(message, category, filename, lineno, file=None, line=None):
@@ -2681,19 +2687,74 @@ def phase_scan(card, frames, gt):
         syncs.append(len(stacks))
         clean.append(n_host == (vo.n_relocalizations, vo.n_loop_closures, vo.n_compactions,
                                 vo.n_db_compactions))
+        bas.append(vo.n_window_ba - n_ba)
         if len(stacks) != 1:
             for st in stacks:
-                log(f"[scan] batch at frame {i}: a synchronising call from\n"
+                log(f"[scan] {tag}: batch at frame {i}: a synchronising call from\n"
                     + "".join(ln for ln in st if "site-packages" not in ln or "torch" in ln))
         i += cfg.frames_per_dispatch
-    log(f"[scan] host synchronisations per process_batch call of {cfg.frames_per_dispatch} "
-        f"frames after the first: {syncs} (event-free: {clean}); keyframes in them "
-        f"{vo.kf_count}, window BAs {vo.n_window_ba}, CG iterations {vo.n_cg_iters}, no "
-        f"host read per CG iteration")
+    log(f"[scan] {tag}: host synchronisations per process_batch call of "
+        f"{cfg.frames_per_dispatch} frames after the first: {syncs} (event-free: {clean}; "
+        f"window BAs in each: {bas}); keyframes in the run {vo.kf_count}, window BAs "
+        f"{vo.n_window_ba}, CG iterations {vo.n_cg_iters}")
     if not syncs or [n for n, c in zip(syncs, clean) if c] != [1] * sum(clean) or not any(clean):
-        raise AssertionError(f"[scan] event-free batches synchronise {syncs}, not once each")
+        raise AssertionError(f"[scan] {tag}: event-free batches synchronise {syncs}, not once "
+                             f"each")
+    return vo, syncs, clean, bas
+
+
+def phase_scan(card, frames, gt):
+    """Phase 11: the device-resident frame loop (module docstring)."""
+    t_phase = time.perf_counter()
+    cfg = Config()
+    # (a) phase 4's frames under Config(): every batch event-free
+    bt, launches, _, _ = scan_pair("slice", cfg, frames, gt, card)
+    if bt.n_window_ba < 3 or "scan_dispatch" not in bt.monitor.timers:
+        raise AssertionError(f"[scan] slice: {bt.n_window_ba} window BAs through the loop")
+    # (b) phase 4b's out-and-back: a loop candidate early-outs to the host
+    loop_frames = list(frames[:N_OUT]) + list(frames[N_OUT - 1::-1])
+    loop_gt = np.concatenate([gt[:N_OUT], gt[N_OUT - 1::-1]])
+    lp, loop_launches, _, _ = scan_pair("loop", Config(**LOOP_GATES), loop_frames, loop_gt,
+                                        card)
+    if lp.n_loop_closures < 1:
+        raise AssertionError("[scan] loop: no closure through process_batch")
+    # (c) a relocalisation mid-batch: four black frames after frame 12
+    black = [np.zeros_like(frames[0])] * 4
+    rl, reloc_launches, _, _ = scan_pair("relocalize", Config(loop_closure=False),
+                                         list(frames[:13]) + black + list(frames[13:28]),
+                                         np.concatenate([gt[:13], np.repeat(gt[12:13], 4, 0),
+                                                         gt[13:28]]), card)
+    if rl.n_relocalizations < 1:
+        raise AssertionError("[scan] relocalize: no relocalization")
+    # (d) host synchronisations: one per event-free batch of 16 frames over
+    # the slice's frames out and back (no closure: Config()'s 100-frame gap)
+    seq = list(frames) + list(frames[::-1])
+    scan_syncs("pcg", cfg, seq)
+    out = [launches, loop_launches, reloc_launches]
+    # (e) the dense window solves inside the loop (no _REASON_KF_BA early-out):
+    # window BA's LM steps with the dense camera step (Z^T Z or the dense
+    # tables, the Cholesky and both triangular solves) captured in the
+    # program's pieces, no CG loop; the per-frame bits, and one sync per
+    # event-free batch with a keyframe and its window BA inside
+    for solver in ("zexplicit", "explicit"):
+        dcfg = Config(ba_solver=solver)
+        dn, dense_launches, _, in_loop = scan_pair(solver, dcfg, frames, gt, card,
+                                                   bit_equal=True)
+        if in_loop < 1 or dn.n_cg_iters != 0:
+            raise AssertionError(f"[scan] {solver}: {in_loop} window BAs in the loop, "
+                                 f"{dn.n_cg_iters} CG iterations")
+        idle = [k for k in ("track_pyramid", "align_to_templates", "sample_patches",
+                            "sparse_align", "corner_response_pyramid", "remap_xy")
+                if dense_launches[k] < 1]
+        if idle:
+            raise AssertionError(f"[scan] {solver}: the loop launched no {idle}")
+        _, syncs, clean, bas = scan_syncs(solver, dcfg, seq)
+        if not any(c and n == 1 and b > 0 for n, c, b in zip(syncs, clean, bas)):
+            raise AssertionError(f"[scan] {solver}: no event-free batch with a window BA "
+                                 f"inside synchronised once ({syncs}, {clean}, {bas})")
+        out.append(dense_launches)
     log(f"[scan] phase 11 in {time.perf_counter() - t_phase:.1f} s")
-    return {k: launches[k] + loop_launches[k] + reloc_launches[k] for k in launches}
+    return {k: sum(d[k] for d in out) for k in launches}
 
 
 def print_table(rows, per, in_path, card):

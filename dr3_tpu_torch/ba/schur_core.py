@@ -300,20 +300,25 @@ def _explicit_s_corr(WHinv_pad, AtB_pad, cam_pad, pt_table, n_cams: int):
     return s_flat.reshape(n_cams, n_cams, C, C).permute(0, 2, 1, 3)
 
 
-def _explicit_s_corr_sqrt(Hpp_inv, AtB, obs_cam, obs_pt, active, n_cams: int,
-                          n_points: int, by_key=None):
+def _pair_reducer(obs_cam, obs_pt, active, n_cams: int, n_points: int,
+                  width: int | None = None):
+    """The per-(point, camera) sum of the active rows, keys in int64, by
+    the keyed table; ``width`` is the most rows one key can hold, when the
+    caller knows it (no host read: :func:`_table_reducer`)."""
+    return _table_reducer(obs_pt.long() * n_cams + obs_cam.long(), n_points * n_cams,
+                          active, width)
+
+
+def _explicit_s_corr_sqrt(Hpp_inv, AtB, obs_pt, n_cams: int, n_points: int, by_key):
     """W Hpp^-1 W^T as Z^T Z: with Hpp^-1_p = L_p L_p^T, the (point,
     camera) block of Z [3P, CK] is L_p^T sum_o AtB_o^T over the point's
-    observations by that camera (duplicates add, padding rows add zeros).
-    The active rows' blocks are summed per (point, camera) key in a fixed
-    order, keys in int64: by the keyed table, or by ``by_key`` (a reducer
-    over those keys built once by a caller with an LM loop)."""
+    observations by that camera (duplicates add, padding rows add zeros),
+    summed per (point, camera) key in a fixed order by ``by_key`` (a
+    reducer over those keys: :func:`_pair_reducer`, or the distributed
+    BA's per shard)."""
     O, C, _ = AtB.shape
     Lo = chol3(Hpp_inv)[obs_pt]                            # [O, 3, 3] lower
     zupd = torch.einsum("ojr,ocj->orc", Lo, AtB)           # [O, 3, C]
-    if by_key is None:
-        key = obs_pt.long() * n_cams + obs_cam.long()
-        by_key = _table_reducer(key, n_points * n_cams, active)
     Zb = by_key(zupd)                                      # [P*K, 3, C]
     Z = Zb.reshape(n_points, n_cams, 3, C).permute(0, 2, 1, 3) \
         .reshape(3 * n_points, n_cams * C)
@@ -330,14 +335,12 @@ def _pad_obs(x):
 _DENSE_W_MAX_ELEMS = 64 * 1024 * 1024
 
 
-def _explicit_s_corr_dense(WHinv, AtB, obs_cam, obs_pt, active, n_cams: int,
-                           n_points: int):
+def _explicit_s_corr_dense(WHinv, AtB, active, n_cams: int, n_points: int, by_key):
     """W Hpp^-1 W^T as one product of dense per-(point, camera) tables
-    U, V [P, K, C, 3], each summed per key in a fixed order."""
+    U, V [P, K, C, 3], each summed per key in a fixed order by ``by_key``
+    (:func:`_pair_reducer`)."""
     C = AtB.shape[-2]
     w = active.to(WHinv.dtype)[:, None, None]
-    by_key = _table_reducer(obs_pt.long() * n_cams + obs_cam.long(), n_points * n_cams,
-                            active)
     U = by_key(WHinv * w).reshape(n_points, n_cams, C, 3)
     V = by_key(AtB * w).reshape(n_points, n_cams, C, 3)
     U2 = U.permute(1, 2, 0, 3).reshape(n_cams * C, n_points * 3)
@@ -461,18 +464,23 @@ def _solve_schur(blocks: SchurBlocks, lam, cam_fixed, *, method, d_max, jacobi,
     return dc, back_substitute(red, dc, dg), dg, n_cg
 
 
-def dense_camera_solve(red: Reduced, method: str, d_max, jacobi: bool):
+def dense_camera_solve(red: Reduced, method: str, d_max, jacobi: bool,
+                       pair_width: int | None = None):
     """The exact camera step of ``method`` (explicit / zexplicit): (dc, dg
-    or None)."""
+    or None). ``pair_width``: the most observations one (point, camera)
+    pair can have, when the caller knows it from the problem (the VO
+    window: 1), so the dense tables read nothing to the host; by default
+    it is read once, here."""
     b = red.blocks
     K, C = b.Hcc.shape[0], b.Hcc.shape[-1]
     P = b.Hpp.shape[0]
     oc, op = b.obs_cam, b.obs_pt
     dense_ok = P * K * C * 3 <= _DENSE_W_MAX_ELEMS
+    by_key = _pair_reducer(oc, op, b.active, K, P, pair_width) if dense_ok else None
     if method == "zexplicit" and dense_ok:
-        S_corr = _explicit_s_corr_sqrt(red.Hpp_inv, b.AtB, oc, op, b.active, K, P)
+        S_corr = _explicit_s_corr_sqrt(red.Hpp_inv, b.AtB, op, K, P, by_key)
     elif dense_ok:
-        S_corr = _explicit_s_corr_dense(red.WHinv, b.AtB, oc, op, b.active, K, P)
+        S_corr = _explicit_s_corr_dense(red.WHinv, b.AtB, b.active, K, P, by_key)
     else:
         tbl = group_by_point(op, b.active, P, K if d_max is None else d_max)
         S_corr = _explicit_s_corr(_pad_obs(red.WHinv), _pad_obs(b.AtB), _pad_obs(oc), tbl, K)

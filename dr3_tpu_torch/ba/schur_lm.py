@@ -10,11 +10,12 @@ linearisation when the step is accepted. Solver selection: up to
 ``zexplicit``, beyond it ``pcg``.
 
 :class:`LMSteps` is that loop as steps over a state dict: start, then per
-LM iteration ``pre`` (blocks, reduced system, CG start), ``cg_step`` while
-``S["cg_go"]`` holds, ``post`` (point step, update, accept). ``bundle_adjust``
-drives it from the host, reading the CG exit flag once per iteration; the
-VO's loop program (pipelines/vo.py) captures the same steps as CUDA graph
-pieces, with the CG loop a WHILE node and no read at all.
+LM iteration ``pre`` (blocks, reduced system, then the dense solves' camera
+step or CG's start), ``cg_step`` while ``S["cg_go"]`` holds (pcg only),
+``post`` (point step, update, accept). ``bundle_adjust`` drives it from the
+host, reading the CG exit flag once per iteration; the VO's loop program
+(pipelines/vo.py) captures the same steps as CUDA graph pieces, with the CG
+loop a WHILE node and no read at all.
 
 Every sum has a fixed order (ba/schur_core.py), so both entry points give
 the same bits from run to run on the card; every camera-keyed sum,
@@ -95,15 +96,18 @@ class LMSteps:
     ``max_iters`` times :meth:`pre`, :meth:`cg_step` while ``S["cg_go"]``
     (int32) holds, :meth:`post`. ``T`` is a plain dict for what ``pre``
     hands to the CG steps and ``post`` of the same LM iteration (the reduced
-    system, read-only). ``pt_width`` is the most observations a point can
-    have, when the caller knows it from the problem's shape: the point sums
-    then read nothing to the host (``schur_core._table_reducer``). The CG
-    iterations run are counted in ``S["cg_total"]`` (int32)."""
+    system, read-only; for a dense method the camera step). ``pt_width`` is
+    the most observations a point can have and ``pair_width`` the most one
+    (point, camera) pair can have, when the caller knows them from the
+    problem's shape: the point sums and the dense solves' pair tables then
+    read nothing to the host (``schur_core._table_reducer``). The CG
+    iterations run are counted in ``S["cg_total"]`` (int32), 0 for a dense
+    method."""
 
     def __init__(self, problem: BAProblem, max_iters: int, huber_delta: float,
                  jacobi: bool, lambda0: float, optimize_intrinsics: bool, method: str,
                  d_max: int | None, cg_iters: int, cg_tol: float, q_eta: float,
-                 pt_width: int | None = None):
+                 pt_width: int | None = None, pair_width: int | None = None):
         if method not in ("explicit", "zexplicit", "pcg"):
             raise ValueError(f"unknown schur method {method!r}")
         self.K, self.P, self.O = problem.n_cams, problem.n_points, problem.n_obs
@@ -111,7 +115,7 @@ class LMSteps:
         self.lambda0, self.intrinsics, self.method = lambda0, optimize_intrinsics, method
         self.d_max = min(self.K, self.O) if d_max is None else d_max
         self.cg_iters, self.cg_tol, self.q_eta = cg_iters, cg_tol, q_eta
-        self.pt_width = pt_width
+        self.pt_width, self.pair_width = pt_width, pair_width
         self.dist = problem.dist
 
     def problem(self, S) -> BAProblem:
@@ -156,7 +160,8 @@ class LMSteps:
             T["cg"] = PCG(red, p.cam_fixed, self.cg_iters, self.cg_tol, self.q_eta)
             T["cg"].start(S)
         else:
-            T["step"] = dense_camera_solve(red, self.method, self.d_max, self.jacobi)
+            T["step"] = dense_camera_solve(red, self.method, self.d_max, self.jacobi,
+                                           self.pair_width)
             S.put("cg_go", torch.zeros((), dtype=torch.int32, device=p.cam_t.device))
 
     def cg_step(self, S, T: dict) -> None:

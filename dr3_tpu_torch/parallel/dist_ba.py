@@ -204,9 +204,8 @@ def _lm_loop(local: BAProblem, key_sorted: torch.Tensor, bounds: list, mesh: Mes
         else:
             S_corr = None
             for rows, p0, n_z, by_key in zs:
-                part = _explicit_s_corr_sqrt(Hpp_inv[p0:p0 + n_z], blocks.AtB[rows], oc[rows],
-                                             op[rows] - p0, active[rows], K, n_z,
-                                             by_key=by_key)
+                part = _explicit_s_corr_sqrt(Hpp_inv[p0:p0 + n_z], blocks.AtB[rows],
+                                             op[rows] - p0, K, n_z, by_key)
                 S_corr = part if S_corr is None else S_corr + part
         # the ONE communication step per iteration: the partial reduced
         # systems, packed into one buffer

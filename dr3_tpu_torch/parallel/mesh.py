@@ -156,5 +156,22 @@ def distributed_init(coordinator: Optional[str] = None,
     return True
 
 
+def distributed_shutdown() -> None:
+    """Leave the default process group of a multi-process run: a barrier
+    first, so that no rank closes its connections while a peer is still
+    in a collective over them, then ``destroy_process_group``. Does
+    nothing when no group was joined. A caller drops its meshes (which
+    hold the group) before, so that the group is torn down here and not
+    while the interpreter exits."""
+    if not (dist.is_available() and dist.is_initialized()):
+        return
+    if dist.get_world_size() > 1:
+        if dist.get_backend() == "nccl":
+            dist.barrier(device_ids=[torch.cuda.current_device()])
+        else:
+            dist.barrier()
+    dist.destroy_process_group()
+
+
 def pad_to_multiple(n: int, m: int) -> int:
     return ((n + m - 1) // m) * m

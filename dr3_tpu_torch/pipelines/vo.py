@@ -40,13 +40,14 @@ tensors; the per-frame driver calls the same functions. On the card one
 batch as ONE CUDA graph: the steps are captured pieces and the branches
 and the CG loop are conditional nodes (csrc/graph_loop.cu), so a batch
 costs one launch and one host read (its row block) however many keyframes
-and CG iterations it holds. On the CPU the same steps run with Python
-branches on the flags. The host touches a frame only on an early-out:
-relocalisation, a map or database capacity event, a loop candidate, or —
-with ``mesh=`` (parallel/mesh.py) or a dense ``ba_solver`` — the deferred
-window BA (``_REASON_*``). With ``mesh=`` the window BA and
-``global_refine`` run the point-sharded distributed BA
-(parallel/dist_ba.py).
+and CG iterations it holds; window BA runs inside with every ``ba_solver``
+(pcg's CG loop a WHILE node, the dense solves' Cholesky inside their LM
+step's piece). On the CPU the same steps run with Python branches on the
+flags. The host touches a frame only on an early-out: relocalisation, a
+map or database capacity event, a loop candidate, or — with ``mesh=``
+(parallel/mesh.py) only, as in the JAX package — the deferred window BA
+(``_REASON_*``). With ``mesh=`` the window BA and ``global_refine`` run the
+point-sharded distributed BA (parallel/dist_ba.py).
 """
 
 from __future__ import annotations
@@ -504,12 +505,15 @@ def _window_lm(prob, cfg: Config, max_iters: int) -> LMSteps:
     """The window BA's LM steps: ``Config.ba_solver`` and its CG settings,
     and the point sums at the static width min(K, O), the JAX package's
     d_max (dr3_tpu/ba/schur_lm.py:111-113): a window keyframe observes a
-    map point through at most one track, so no point has more than K
-    observations. No host read sizes anything."""
+    map point through at most one track (a keyframe's observations are a
+    snapshot of the track table, where no two tracks share a point), so no
+    point has more than K observations and no (point, keyframe) pair more
+    than one: the dense solves' pair tables have width 1. No host read
+    sizes anything."""
     return LMSteps(prob, max_iters, cfg.ba_huber_delta, cfg.ba_jacobi_scaling,
                    cfg.ba_lambda0, False, _pick_solver(prob, cfg.ba_solver), None,
                    cfg.ba_cg_iters, cfg.ba_cg_tol, cfg.ba_q_eta,
-                   pt_width=min(prob.n_cams, prob.n_obs))
+                   pt_width=min(prob.n_cams, prob.n_obs), pair_width=1)
 
 
 # scan-row layout (float32; counters are exact in f32 at these magnitudes):
@@ -544,7 +548,7 @@ _REASON_HOST_KF = 2      # map/db capacity: host keyframe (with compaction)
 _REASON_LOOP_CAND = 3    # place recognition hit: host verifies + closes,
                          # then runs the deferred window BA
 _REASON_KF_BA = 4        # keyframe made in the loop, window BA deferred to
-                         # the host (mesh-distributed, or a dense solver)
+                         # the host (only with a mesh: the distributed BA)
 
 # the carry of the frame loop: what one batch hands the next
 _CARRY = ("pyr", "tracks", "kfs", "map", "db", "T", "fidx", "kfc", "pc", "dbc", "lkt",
@@ -571,8 +575,11 @@ class _Scan:
     ``S["go"]``: :meth:`frame` (the general step and the decisions), if
     ``S["do_kf"]`` :meth:`keyframe` (eviction, triangulation + spawning,
     snapshot, loop insert + query), if ``S["run_ba"]`` the window BA
-    (:meth:`ba_start`, the LM steps, :meth:`ba_finish`), then :meth:`tail`
-    (the frame's row, the carry's counters, the next ``go``).
+    (:meth:`ba_start`, the LM steps — for pcg with its CG loop, for the
+    dense solves without one —, :meth:`ba_finish`), then :meth:`tail` (the
+    frame's row, the carry's counters, the next ``go``). ``defer_ba`` (a
+    mesh is attached) ends the batch at each keyframe instead, for the
+    host's distributed BA.
 
     The CPU runs it with Python branches on the flags (:meth:`walk`);
     on the card :class:`_ScanProgram` captures each step as a CUDA graph
@@ -733,12 +740,13 @@ class _Scan:
     def structure(self) -> list:
         """The loop as nested steps: ("step", name), ("if", flag, body),
         ("while", flag, body); a WHILE body sets its flag again at its end.
-        :meth:`walk` runs it, :class:`_ScanProgram` builds its graph."""
-        ba = [("step", "ba_start")]
-        for _ in range(self.lm.max_iters):
-            ba += [("step", "lm_pre"), ("while", "cg_go", [("step", "cg_step")]),
-                   ("step", "lm_post")]
-        ba.append(("step", "ba_finish"))
+        :meth:`walk` runs it, :class:`_ScanProgram` builds its graph. An LM
+        step of pcg holds its CG loop; a dense solve's has none (its camera
+        step is inside ``lm_pre``, as ``LMSteps.pre`` computes it)."""
+        lm_step = [("step", "lm_pre"), ("step", "lm_post")]
+        if self.lm.method == "pcg":
+            lm_step.insert(1, ("while", "cg_go", [("step", "cg_step")]))
+        ba = [("step", "ba_start"), *lm_step * self.lm.max_iters, ("step", "ba_finish")]
         body = [("step", "frame"), ("if", "do_kf", [("step", "keyframe"), ("if", "run_ba", ba)]),
                 ("step", "tail")]
         return [("step", "prologue"), ("while", "go", body)]
@@ -757,6 +765,15 @@ class _Scan:
                 while bool(S[node[1]]):
                     self.walk(S, node[2])
 
+    def steps(self, nodes=None) -> list:
+        """The step names :meth:`structure` holds, each once, in the order
+        they first appear: the pieces a program warms up and captures."""
+        out: list = []
+        for node in self.structure() if nodes is None else nodes:
+            names = [node[1]] if node[0] == "step" else self.steps(node[2])
+            out += [n for n in names if n not in out]
+        return out
+
 
 def _kf_info_none(device) -> torch.Tensor:
     """:meth:`_Scan.frame`'s no-keyframe info by fills (a graph captures
@@ -772,20 +789,17 @@ _LOOP_COUNTERS = _STEP_COUNTERS + (corners.corner_response_pyramid, corners.corn
                                    remap_xy)
 
 
-_STEPS = ("prologue", "frame", "keyframe", "ba_start", "lm_pre", "cg_step", "lm_post",
-          "ba_finish", "tail")
-
-
 def _own_slots(scan: _Scan, carry: dict, batch: dict) -> Slots:
     """The slots of a loop program: the carry and the batch cloned, then
-    one eager run of every step in ``own`` mode, which allocates every
-    other slot, each with storage of its own, and warms the steps up."""
+    one eager run of every step the loop holds (:meth:`_Scan.steps`) in
+    ``own`` mode, which allocates every other slot, each with storage of
+    its own, and warms the steps up."""
     S = Slots("own")
     for k, v in {**carry, **batch}.items():
         S.put(k, v)
     S.put("rows", torch.zeros((batch["imgs"].shape[0], _ROW_DIM), dtype=torch.float32,
                               device=batch["imgs"].device))
-    for name in _STEPS:
+    for name in scan.steps():
         getattr(scan, name)(S)
     return S
 
@@ -801,9 +815,10 @@ class _ScanProgram:
             frame                       (copy frame i, general step, decisions)
             IF do_kf:
                 keyframe                (evict, kf step, snapshot, loop insert + query)
-                IF run_ba:              (no loop candidate, BA not deferred)
+                IF run_ba:              (no loop candidate, no mesh)
                     ba_start
                     ba_max_iters x [lm_pre, WHILE cg_go: [cg_step], lm_post]
+                                        (pcg; a dense solve: [lm_pre, lm_post])
                     ba_finish
             tail                        (row, counters, next go)
 
@@ -829,7 +844,7 @@ class _ScanProgram:
                                for c, b in zip(_LOOP_COUNTERS, before) if c.launches != b}
         S.mode = "capture"
         self.graphs, self.launches = {}, {}
-        for name in _STEPS:
+        for name in scan.steps():
             self.graphs[name], self.launches[name] = capture_piece(
                 lambda fn=getattr(scan, name): fn(S), side, _LOOP_COUNTERS)
         self.program = GraphProgram()
@@ -870,7 +885,8 @@ class _ScanProgram:
     def count(self, rows: np.ndarray) -> None:
         """Add the launches the consumed ``rows`` made to the kernel
         counters: the frame pieces per row, the keyframe piece per in-loop
-        keyframe, the BA pieces per in-loop BA (cg_step per CG iteration)."""
+        keyframe, the BA pieces per in-loop BA (cg_step per CG iteration,
+        none in a dense solve's program)."""
         used = rows[rows[:, _ROW_CONSUMED] > 0.5]
         n = {"prologue": 1 if len(used) else 0, "frame": len(used), "tail": len(used),
              "keyframe": int(used[:, _ROW_KF_IN_LOOP].sum())}
@@ -878,7 +894,7 @@ class _ScanProgram:
         n.update(ba_start=n_ba, ba_finish=n_ba, lm_pre=n_ba * self.scan.lm.max_iters,
                  lm_post=n_ba * self.scan.lm.max_iters, cg_step=int(used[:, _ROW_CG].sum()))
         for piece, k in n.items():
-            for c, d in self.launches[piece].items():
+            for c, d in self.launches.get(piece, {}).items():
                 c.launches += k * d
 
 
@@ -1040,8 +1056,8 @@ class MonoVO:
         CG loop) and the host reads one row block per batch; on the CPU the
         same functions run with Python branches. The host touches a frame
         only for bootstrap, relocalisation, capacity compaction, loop-
-        closure verification and correction, and, with a mesh (or a dense
-        ``ba_solver``), the window BA (``_REASON_KF_BA``). Returns the
+        closure verification and correction, and, with a mesh only, the
+        window BA (``_REASON_KF_BA``). Returns the
         per-frame T_f_w 4x4 matrices, bit-equal to per-frame
         :meth:`process`.
 
@@ -1090,12 +1106,10 @@ class MonoVO:
 
     def _scan_body(self) -> _Scan:
         if self._scan is None:
-            prob = _window_problem(self.kfs, self.map, self.intr, self.cam.dist)
-            # the loop runs window BA only with the matrix-free pcg solve (its
-            # CG loop is a graph WHILE node); the mesh-distributed BA and the
-            # dense solves run on the host after a _REASON_KF_BA early-out
-            defer = self.mesh is not None or _pick_solver(prob, self.cfg.ba_solver) != "pcg"
-            self._scan = _Scan(self, defer)
+            # the loop runs window BA with every solver, as the JAX package's
+            # scan does (dr3_tpu/pipelines/vo.py:1013); the mesh-distributed
+            # BA runs on the host after a _REASON_KF_BA early-out
+            self._scan = _Scan(self, defer_ba=self.mesh is not None)
         return self._scan
 
     def _host_carry(self) -> dict:

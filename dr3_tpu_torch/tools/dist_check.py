@@ -199,7 +199,8 @@ def main(argv=None):
             os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
             with open(args.out, "w") as f:
                 f.write(line + "\n")
-    dist.destroy_process_group()
+    mesh = None            # the group goes with the shutdown, not at exit
+    pmesh.distributed_shutdown()
     return 0 if ok else 1
 
 

@@ -5,13 +5,20 @@ synchronising call counted with ``torch.cuda.set_sync_debug_mode("warn")``
 and split into those inside the host's window BA (``MonoVO._run_local_ba``:
 the per-frame path's, and the batch path's after a loop candidate) and the
 rest. Counted after the tool's warm-up (its first 40 frames), as its
-frames/s is.
+frames/s is. After the loop's run, window BA's pieces of its program
+(``lm_pre``, ``cg_step``, ``lm_post``) are each replayed alone on the
+program's slots (the state its last batch left) and timed on the device
+(``tools/cudatime.device_ms``): an LM iteration inside the program costs
+``lm_pre + lm_post`` and, for pcg, the run's CG iterations per LM
+iteration times ``cg_step``.
 
     python dr3_tpu_torch/tools/scan_reads.py [--frames 400] [--out f.json]
+        [--key=value ...]
 
-Prints one JSON line per mode, then the card's name and power limit. The
-counting hooks cost a Python call per synchronisation, inside the timed
-window.
+``--key=value`` are ``run_long_sequence``'s Config overrides (e.g.
+``--ba_solver=zexplicit``). Prints one JSON line per mode, then the card's
+name and power limit. The counting hooks cost a Python call per
+synchronisation, inside the timed window.
 """
 
 from __future__ import annotations
@@ -25,7 +32,27 @@ import warnings
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
-def measure(frames: int, batch: int) -> dict:
+def lm_piece_ms(vo, cg_per_lm: float) -> dict:
+    """Device ms of window BA's pieces of ``vo``'s loop program, each
+    replayed alone 20 times on the program's slots, and of one LM
+    iteration built from them. The slots keep what the replays wrote: the
+    program's next launch loads its carry afresh."""
+    from dr3_tpu_torch.tools.cudatime import device_ms
+
+    (prog,) = vo.scan_programs.values()
+    out = {}
+    for name in ("lm_pre", "cg_step", "lm_post"):
+        graph = prog.graphs.get(name)
+        if graph is not None:
+            graph.instantiate()
+            out[name + "_ms"], out[name + "_timed_by"] = device_ms(graph.replay, n=20)
+    prog.last_carry = None
+    out["lm_iteration_ms"] = (out["lm_pre_ms"] + out["lm_post_ms"]
+                              + cg_per_lm * out.get("cg_step_ms", 0.0))
+    return out
+
+
+def measure(frames: int, batch: int, overrides=()) -> dict:
     import torch
 
     from dr3_tpu_torch.pipelines.vo import MonoVO
@@ -62,7 +89,7 @@ def measure(frames: int, batch: int) -> dict:
             warnings.showwarning = show
             torch.cuda.set_sync_debug_mode("warn")
             try:
-                vo, out = long_seq.run(args, (), on_step)
+                vo, out = long_seq.run(args, overrides, on_step)
             finally:
                 torch.cuda.set_sync_debug_mode("default")
     finally:
@@ -71,26 +98,33 @@ def measure(frames: int, batch: int) -> dict:
     n_ba = vo.n_window_ba - start["window_ba"]
     host_ba = counts["ba"] - start["ba"]
     other = counts["other"] - start["other"]
-    return {"batch": batch, "frames_counted": n, "frames_per_sec": out["pipeline_frames_per_sec"],
+    pieces = {}
+    if vo.scan_programs:
+        pieces = lm_piece_ms(vo, vo.n_cg_iters / max(vo.n_window_ba * vo.cfg.ba_max_iters, 1))
+    return {"batch": batch, "ba_solver": vo.cfg.ba_solver, "frames_counted": n,
+            "frames_per_sec": out["pipeline_frames_per_sec"],
             "keyframes": sum(s.is_keyframe for s in vo.stats) - start["kf"],
             "window_ba": n_ba, "cg_iterations": vo.n_cg_iters - start["cg"],
             "host_reads": host_ba + other, "host_reads_in_window_ba": host_ba,
             "host_reads_per_frame_outside_ba": other / max(n, 1),
             "host_reads_per_window_ba": host_ba / max(n_ba, 1),
+            "host_reads_per_frame": (host_ba + other) / max(n, 1),
             "loop_programs": len(vo.scan_programs), "loop_closures": out["loop_closures"],
-            "ate_pct_of_trajectory": out["ate_pct_of_trajectory"]}
+            "ate_pct_of_trajectory": out["ate_pct_of_trajectory"], **pieces}
 
 
 def main(argv=None) -> int:
     sys.path.insert(0, ROOT)
-    ap = argparse.ArgumentParser(description=__doc__,
+    ap = argparse.ArgumentParser(description=__doc__, allow_abbrev=False,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--frames", type=int, default=400)
     ap.add_argument("--out", default=None, help="also write the lines as a JSON list here")
-    args = ap.parse_args(argv)
+    args, overrides = ap.parse_known_args(argv)
+    if any(not a.startswith("--") or "=" not in a for a in overrides):
+        ap.error(f"unrecognized arguments: {' '.join(overrides)}")
     from dr3_tpu_torch.tools.run_long_sequence import card_name
 
-    rows = [measure(args.frames, batch) for batch in (8, 1)]
+    rows = [measure(args.frames, batch, overrides) for batch in (8, 1)]
     for r in rows:
         print(json.dumps(r), flush=True)
     card = card_name()

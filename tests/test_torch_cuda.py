@@ -775,6 +775,72 @@ def test_vo_process_batch_is_process_on_the_card(dev, vo_frames):
     np.testing.assert_array_equal(np.stack(a.trajectory), np.stack(b.trajectory))
 
 
+def test_vo_process_batch_is_process_on_the_card_zexplicit(dev, vo_frames, monkeypatch):
+    """The same with ``ba_solver="zexplicit"``: window BA's dense solve (Z^T
+    Z, its Cholesky and both triangular solves) runs inside the loop
+    program's LM pieces, with no CG loop and no keyframe handed back to the
+    host for its BA; the bits of per-frame process."""
+    from dr3_tpu_torch.pipelines.vo import MonoVO
+
+    host_ba = []
+    run_ba = MonoVO._run_local_ba
+
+    def spy(self, slot):
+        host_ba.append(self.frame_idx)
+        return run_ba(self, slot)
+
+    a, out_a = _vo_run(vo_frames, ba_solver="zexplicit")
+    monkeypatch.setattr(MonoVO, "_run_local_ba", spy)
+    b, out_b = _vo_run(vo_frames, batched=True, frames_per_dispatch=8, ba_solver="zexplicit")
+    assert _decisions(a) == _decisions(b)
+    assert b.n_window_ba == a.n_window_ba and b.n_window_ba > len(host_ba)
+    assert b.n_cg_iters == a.n_cg_iters == 0 and len(b.scan_programs) == 1
+    np.testing.assert_array_equal(out_a, out_b)
+    np.testing.assert_array_equal(np.stack(a.trajectory), np.stack(b.trajectory))
+
+
+def test_dense_camera_step_replays_the_eager_bits(dev):
+    """The dense solves' camera step at the VO window's size (32 keyframes
+    x 6: the gauge fix, Jacobi scaling, ``cholesky_ex`` and both
+    ``solve_triangular``, ba/schur_core.py ``_dense_camera_step``),
+    captured in a CUDA graph on a side stream as the loop program's
+    ``lm_pre`` piece holds it: no host synchronisation under capture, and
+    a replay gives the eager call's bits (the solution within 1e-3 of a
+    float64 solve)."""
+    from dr3_tpu_torch.ba.schur_core import _dense_camera_step
+
+    rng = np.random.default_rng(0)
+    K, C = 32, 6
+    A = rng.normal(size=(K * C, 400))
+    M = A @ A.T / 400 + np.eye(K * C)
+    Hcc = np.stack([M[k * C:(k + 1) * C, k * C:(k + 1) * C] for k in range(K)])
+    S_corr = np.zeros((K * C, K * C))
+    for k in range(K):
+        S_corr[k * C:(k + 1) * C, k * C:(k + 1) * C] = Hcc[k]
+    S_corr = (S_corr - M).reshape(K, C, K, C)
+    keep = np.ones(K * C)
+    keep[:2 * C] = 0.0                       # the two gauge-fixed keyframes
+    rhs = rng.normal(size=K * C)
+    args = [torch.as_tensor(a, dtype=torch.float32, device=dev)
+            for a in (S_corr, Hcc, rhs, keep)]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        eager = _dense_camera_step(*args, True)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        out = _dense_camera_step(*args, True)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager)
+    S = M * keep[:, None] * keep[None, :] + np.diag(1.0 - keep)
+    d = np.sqrt(np.diag(S))
+    want = np.linalg.solve(S / d[:, None] / d[None, :] + 1e-6 * np.eye(K * C),
+                           rhs * keep / d) / d
+    np.testing.assert_allclose(eager.cpu().numpy(), want, atol=1e-3)
+
+
 def test_step_graph_counts_and_copies(dev):
     """StepGraph on a kernel wrapper: eager first call, then replays on
     fresh inputs; each call counts one launch; outputs are the caller's."""

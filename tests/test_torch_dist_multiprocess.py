@@ -48,7 +48,7 @@ import json, sys
 torch.set_num_threads(1)
 pid, n, store = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
 from dr3_tpu_torch.parallel.dist_ba import dist_bundle_adjust
-from dr3_tpu_torch.parallel.mesh import distributed_init, make_mesh_2d
+from dr3_tpu_torch.parallel.mesh import distributed_init, distributed_shutdown, make_mesh_2d
 assert distributed_init("file://" + store, n, pid, device="cpu")
 import torch.distributed as dist
 assert dist.get_backend() == "gloo" and dist.get_world_size() == n
@@ -61,7 +61,8 @@ for iters in (4, 10):
                   "n_acc": int(res.n_accepted), "cam_t": res.problem.cam_t.tolist(),
                   "points": res.problem.points.tolist()}
 print("RESULT " + json.dumps(out), flush=True)
-dist.destroy_process_group()
+del mesh, res
+distributed_shutdown()
 """
 
 
