@@ -106,8 +106,9 @@ Phases (any failure raises, so the exit code is non-zero):
    97,681.25 and at or below the true parameters' cost, pcg (cg_tol 1e-5,
    q_eta 0) within 1e-4 of zexplicit, two zexplicit runs bit-equal; bench.py's
    ba_bal_lm_iters_per_sec for zexplicit and pcg (its default forcing, with
-   the CG iterations), the peak device memory, and one zexplicit LM
-   iteration's device time split by stage (tools/ba_time.bal_stage_split);
+   the CG iterations), the peak device memory, and a zexplicit and a pcg LM
+   iteration's device time by stage from the program's own ``dr3.ba.*``
+   spans in one profiled solve each (``bal_split``, torch's own events);
    (b) the card against the CPU (same accepted steps, costs within 1e-4,
    cameras and the points seen twice within 1e-3 of their scale): pcg at 16
    x 8,000 x 800 per camera, zexplicit at 16 x 8,000 x 1,600 (at 800 per
@@ -1631,13 +1632,52 @@ def phase_cli(card, frames, gt, slice_run):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+def bal_split(fn, windows: int = 3):
+    """({span: [device ms, device operations]}, cover) of the program's
+    ``dr3.ba.*`` spans over fn() in one torch.profiler window, from torch's
+    own events: the profiler projects each span onto the device's timeline,
+    from the first to the last operation launched directly inside it, and
+    each kernel, copy or fill is charged to the shortest projection that
+    holds it, so a span's figures are its own and not those of the spans
+    inside it. ``cover`` is the share of the window's device time charged
+    to some span. The profiler now and then drops events, so a window under
+    90% is taken again, ``windows`` in all, and the best is kept."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    best = ({}, -1.0)
+    for _ in range(windows):
+        torch.cuda.synchronize()
+        with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        on_device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        ranges = [(e.name, e.time_range) for e in on_device if e.name.startswith("dr3.")]
+        work = [e.time_range for e in on_device if not e.name.startswith("dr3.")]
+        split = {}
+        for w in work:
+            holders = [(r.end - r.start, name) for name, r in ranges
+                       if r.start <= w.start and w.end <= r.end]
+            if holders:
+                s = split.setdefault(min(holders)[1], [0.0, 0])
+                s[0] += 1e-3 * w.elapsed_us()
+                s[1] += 1
+        total = 1e-3 * sum(w.elapsed_us() for w in work)
+        cover = sum(ms for ms, _ in split.values()) / total if total > 0 else 0.0
+        if cover > best[1]:
+            best = (split, cover)
+        if cover >= 0.9:
+            break
+    return best
+
+
 def phase_bal(card, vo):
     """Phase 7: BAL bundle adjustment (module docstring)."""
     from dr3_tpu_torch import run_ba
     from dr3_tpu_torch.ba import snavely as sn
     from dr3_tpu_torch.ba.lm import least_squares
     from dr3_tpu_torch.io.bal import load_bal
-    from dr3_tpu_torch.tools.ba_time import bal_case, bal_lm_rate, bal_stage_split
+    from dr3_tpu_torch.tools.ba_time import bal_case, bal_lm_rate
     from dr3_tpu_torch.tools.make_real_bal import export_bal
 
     t_phase = time.perf_counter()
@@ -1692,11 +1732,22 @@ def phase_bal(card, vo):
     p_rate, p_cg = bal_lm_rate(prob, solver="pcg")
     log(f"[bal] (a) ba_bal_lm_iters_per_sec: zexplicit {z_rate:.3f}, pcg (cg_tol 1e-2, q_eta "
         f"0.1) {p_rate:.3f} with {p_cg:.1f} CG iterations a run of 5 ({card})")
-    split = bal_stage_split(prob)
-    for name, (ms, n) in split.items():
-        log(f"[bal] split of one zexplicit LM iteration: {name}: {ms:.3f} ms device, {n} "
-            f"kernels ({card})")
-    whole = split["whole iteration"][0]
+    n_it = 5
+    for solver, stages in (("zexplicit", ("assemble", "z_build", "ztz", "camera_solve",
+                                          "back_substitute", "accept")),
+                           ("pcg", ("assemble", "pcg", "back_substitute", "accept"))):
+        split, cover = bal_split(lambda: sn.bundle_adjust_snavely(prob, n_it, huber_delta=L2,
+                                                                  solver=solver))
+        for name in stages:
+            ms, n = split.get("dr3.ba." + name, (0.0, 0))
+            log(f"[bal] a {solver} LM iteration by its spans: dr3.ba.{name}: {ms / n_it:.3f} ms "
+                f"device, {n / n_it:.1f} device operations ({card})")
+        log(f"[bal] {solver}: the dr3.ba spans hold {100 * cover:.2f}% of the window's device "
+            f"time" + ("" if cover >= 0.9 else ": the profiler dropped events, the split "
+                       "under-reads"))
+        if solver == "zexplicit":
+            # an iteration: every span but the solve's own (cost0, E, the table)
+            whole = sum(ms for name, (ms, _) in split.items() if name != "dr3.ba.solve") / n_it
     log(f"[bal] one zexplicit LM iteration: {whole:.3f} ms of device time against "
         f"{1e3 / z_rate:.3f} ms of wall in the rate above: the device is busy "
         f"{100 * whole * z_rate / 1e3:.1f}% of it")

@@ -44,6 +44,7 @@ from dr3_tpu_torch.ba.schur_lm import _EXPLICIT_MAX_CAMS
 from dr3_tpu_torch.geometry.lie import SE3, SO3, hat, quat_normalize, quat_rotate, \
     quat_to_matrix
 from dr3_tpu_torch.geometry.linalg import _chol_factor_small, _chol_solve_factored
+from dr3_tpu_torch.utils.timing import span
 
 
 class SnavelyProblem(NamedTuple):
@@ -525,10 +526,16 @@ def _solve_explicit_direct(blocks: DirectBlocks, lam, cam_fixed, E, by_pt=None):
     by_cam, to_obs = _camera_reducer(blocks.obs_cam, blocks.Hcc.shape[0], E)
     if by_pt is None:
         by_pt = _table_reducer(blocks.obs_pt, blocks.Hpp9.shape[0])
-    Hcc_d, Hinv9 = _damp_blocks(blocks, lam)
-    S, dinv = _reduced_camera_matrix(_z_factor(blocks, Hinv9), Hcc_d)
-    dc = _camera_step(S, _reduced_rhs(blocks, Hinv9, by_cam), dinv, cam_fixed)
-    return dc, _back_substitute(blocks, dc, cam_fixed, Hinv9, to_obs, by_pt)
+    with span("ba.z_build"):
+        Hcc_d, Hinv9 = _damp_blocks(blocks, lam)
+        Z = _z_factor(blocks, Hinv9)
+    with span("ba.ztz"):
+        S, dinv = _reduced_camera_matrix(Z, Hcc_d)
+    del Z                                # freed before the Cholesky
+    with span("ba.camera_solve"):
+        dc = _camera_step(S, _reduced_rhs(blocks, Hinv9, by_cam), dinv, cam_fixed)
+    with span("ba.back_substitute"):
+        return dc, _back_substitute(blocks, dc, cam_fixed, Hinv9, to_obs, by_pt)
 
 
 def _solve_pcg_direct(blocks: DirectBlocks, lam, cam_fixed, E, cg_iters: int,
@@ -615,7 +622,8 @@ def _solve_pcg_direct(blocks: DirectBlocks, lam, cam_fixed, E, cg_iters: int,
         i += 1
     dc = x * s_b
     dc = torch.where(torch.isfinite(dc), dc, torch.zeros_like(dc))
-    return dc, _back_substitute(blocks, dc, cam_fixed, Hinv9, to_obs, by_pt), i
+    with span("ba.back_substitute"):
+        return dc, _back_substitute(blocks, dc, cam_fixed, Hinv9, to_obs, by_pt), i
 
 
 def apply_update(p: SnavelyProblem, dc: torch.Tensor, dp: torch.Tensor) -> SnavelyProblem:
@@ -673,43 +681,51 @@ def bundle_adjust_snavely(problem: SnavelyProblem, max_iters: int = 30,
     LM loop absorbs step inexactness). Callers that need near-exact steps,
     fixed LM budgets, tight-convergence tests, pass cg_tol=1e-5, q_eta=0.
     """
-    method, use_direct = _pick_method(problem, solver)
-    if d_max is None:
-        d_max = min(problem.n_cams, problem.n_obs)
-    K, P = problem.n_cams, problem.n_points
-    dev = problem.cam_t.device
-    cost0 = residual_cost(problem, huber_delta)
-    # the camera one-hot and the point table are built once: obs ids are
-    # constant across the loop
-    E = cam_onehot_matrix(problem.obs_cam, K) if use_direct else None
-    fast = use_direct and method in ("pcg", "zexplicit")
-    by_pt = _table_reducer(problem.obs_pt.long().clamp(0, P - 1), P) if fast else None
+    with span("ba.solve"):
+        method, use_direct = _pick_method(problem, solver)
+        if d_max is None:
+            d_max = min(problem.n_cams, problem.n_obs)
+        K, P = problem.n_cams, problem.n_points
+        dev = problem.cam_t.device
+        cost0 = residual_cost(problem, huber_delta)
+        # the camera one-hot and the point table are built once: obs ids are
+        # constant across the loop
+        E = cam_onehot_matrix(problem.obs_cam, K) if use_direct else None
+        fast = use_direct and method in ("pcg", "zexplicit")
+        by_pt = _table_reducer(problem.obs_pt.long().clamp(0, P - 1), P) if fast else None
 
-    p = problem
-    lam = torch.tensor(lambda0, dtype=torch.float32, device=dev)
-    best = cost0
-    n_acc = torch.zeros((), dtype=torch.int32, device=dev)
-    total_cg = 0
-    for _ in range(max_iters):
-        if fast:
-            blocks, _ = _assemble_direct(p, E, huber_delta, by_pt)
-            if method == "zexplicit":
-                dc, dpt = _solve_explicit_direct(blocks, lam, p.cam_fixed, E, by_pt)
-            else:
-                dc, dpt, n_cg = _solve_pcg_direct(blocks, lam, p.cam_fixed, E, cg_iters,
-                                                  cg_tol, q_eta, by_pt)
-                total_cg += n_cg
-        else:
-            res = linearize(p, huber_delta)
-            active = (p.obs_w > 0) & res.valid
-            blocks = assemble_blocks(res.r, res.Jc, res.Jp, p.obs_cam, p.obs_pt, active,
-                                     K, P, cam_onehot=E)
-            dc, dpt, _, n_cg = _solve_schur(blocks, lam, p.cam_fixed, method=method,
-                                            d_max=d_max, jacobi=True, cg_iters=cg_iters,
-                                            cg_tol=cg_tol, q_eta=q_eta, point_sorted=False,
-                                            cam_onehot=E)
-            total_cg += n_cg
-        p, lam, best, ok = _accept_step(p, dc, dpt, lam, best, huber_delta)
-        n_acc = n_acc + ok.to(torch.int32)
-    return SnavelyResult(problem=p, initial_cost=cost0, final_cost=best, n_accepted=n_acc,
-                         lambda_final=lam, cg_iters=total_cg)
+        p = problem
+        lam = torch.tensor(lambda0, dtype=torch.float32, device=dev)
+        best = cost0
+        n_acc = torch.zeros((), dtype=torch.int32, device=dev)
+        total_cg = 0
+        for _ in range(max_iters):
+            with span("ba.lm_iter"):
+                if fast:
+                    with span("ba.assemble"):
+                        blocks, _ = _assemble_direct(p, E, huber_delta, by_pt)
+                    if method == "zexplicit":
+                        dc, dpt = _solve_explicit_direct(blocks, lam, p.cam_fixed, E, by_pt)
+                    else:
+                        with span("ba.pcg"):
+                            dc, dpt, n_cg = _solve_pcg_direct(blocks, lam, p.cam_fixed, E,
+                                                              cg_iters, cg_tol, q_eta, by_pt)
+                        total_cg += n_cg
+                else:
+                    with span("ba.assemble"):
+                        res = linearize(p, huber_delta)
+                        active = (p.obs_w > 0) & res.valid
+                        blocks = assemble_blocks(res.r, res.Jc, res.Jp, p.obs_cam, p.obs_pt,
+                                                 active, K, P, cam_onehot=E)
+                    with span("ba.schur_solve"):
+                        dc, dpt, _, n_cg = _solve_schur(blocks, lam, p.cam_fixed,
+                                                        method=method, d_max=d_max,
+                                                        jacobi=True, cg_iters=cg_iters,
+                                                        cg_tol=cg_tol, q_eta=q_eta,
+                                                        point_sorted=False, cam_onehot=E)
+                    total_cg += n_cg
+                with span("ba.accept"):
+                    p, lam, best, ok = _accept_step(p, dc, dpt, lam, best, huber_delta)
+                n_acc = n_acc + ok.to(torch.int32)
+        return SnavelyResult(problem=p, initial_cost=cost0, final_cost=best, n_accepted=n_acc,
+                             lambda_final=lam, cg_iters=total_cg)

@@ -19,10 +19,8 @@ port has: ``bundle_adjust`` by keyword, ``pose_only_adjust``,
 * with ``--bal``: bench.py's BAL problem (120 cameras x 60,000 points x
   480,000 observations, :func:`bal_case`) through ``bal_to_snavely`` and
   ``bundle_adjust_snavely``: bench.py's ba_bal_lm_iters_per_sec for auto
-  (zexplicit) and pcg (its default forcing, with the CG iterations), peak
-  device memory, and the device time of each stage of one zexplicit LM
-  iteration (:func:`bal_stage_split`, where the checkout has the stage
-  helpers). ``--bal-only`` skips the window and VO timings.
+  (zexplicit) and pcg (its default forcing, with the CG iterations) and
+  peak device memory. ``--bal-only`` skips the window and VO timings.
 
 Prints one JSON object (and writes it to ``--out``). Wall times include
 the host: the CG loop reads one flag per iteration.
@@ -108,70 +106,6 @@ def bal_case(n_cams: int = 120, n_pts: int = 60000, per_cam: int = 4000, seed: i
             BALData(cam, pts, oc, op, uv))
 
 
-def bal_stage_split(prob, windows: int = 3) -> dict:
-    """{stage: (device ms, kernels)} of one zexplicit LM iteration of the
-    Snavely problem ``prob`` (lambda 1e-3, plain L2), in one torch.profiler
-    window: each stage runs inside a ``record_function`` range, which the
-    profiler also records on the device timeline, and is charged the device
-    time of the kernels, copies and fills that ran inside that range;
-    "whole iteration" is every such device event of the window. The
-    profiler now and then drops a window's events, so the window is taken
-    ``windows`` times and the one with the most device events is kept.
-    Uses this checkout's stage helpers of ba/snavely.py."""
-    import torch.profiler as tp
-
-    from dr3_tpu_torch.ba import snavely as sn
-    from dr3_tpu_torch.ba.schur_core import _camera_reducer, _table_reducer, cam_onehot_matrix
-
-    K, P = prob.n_cams, prob.n_points
-    E = cam_onehot_matrix(prob.obs_cam, K)
-    by_pt = _table_reducer(prob.obs_pt.long(), P)
-    lam = torch.tensor(1e-3, device=prob.cam_t.device)
-    best = sn.residual_cost(prob, 1e9)
-    names = ("assembly", "Z build", "Z^T Z", "Cholesky", "back-substitution", "accept test")
-
-    def iteration():
-        with tp.record_function("assembly"):
-            blocks, _ = sn._assemble_direct(prob, E, 1e9, by_pt)
-            by_cam, to_obs = _camera_reducer(blocks.obs_cam, K, E)
-        with tp.record_function("Z build"):
-            Hcc_d, Hinv9 = sn._damp_blocks(blocks, lam)
-            Z = sn._z_factor(blocks, Hinv9)
-        with tp.record_function("Z^T Z"):
-            S, dinv = sn._reduced_camera_matrix(Z, Hcc_d)
-            del Z
-        with tp.record_function("Cholesky"):
-            dc = sn._camera_step(S, sn._reduced_rhs(blocks, Hinv9, by_cam), dinv,
-                                 prob.cam_fixed)
-        with tp.record_function("back-substitution"):
-            dp = sn._back_substitute(blocks, dc, prob.cam_fixed, Hinv9, to_obs, by_pt)
-        with tp.record_function("accept test"):
-            return sn._accept_step(prob, dc, dp, lam, best, 1e9)
-
-    iteration()                                  # warm
-    taken = None
-    for _ in range(windows):
-        torch.cuda.synchronize()
-        with tp.profile(activities=[tp.ProfilerActivity.CPU, tp.ProfilerActivity.CUDA]) as prof:
-            iteration()
-            torch.cuda.synchronize()
-        on_device = [e for e in prof.events()
-                     if e.device_type == torch.autograd.DeviceType.CUDA]
-        ranges = {e.name: e.time_range for e in on_device if e.name in names}
-        work = [e.time_range for e in on_device if e.name not in names]
-        split = {}
-        for name in names:
-            r = ranges.get(name)
-            inside = [w for w in work if r is not None and r.start <= w.start and w.end <= r.end]
-            split[name] = (1e-3 * sum(w.elapsed_us() for w in inside), len(inside))
-        split["sum of the stages"] = (sum(ms for ms, _ in split.values()),
-                                      sum(n for _, n in split.values()))
-        split["whole iteration"] = (1e-3 * sum(w.elapsed_us() for w in work), len(work))
-        if taken is None or split["whole iteration"][1] > taken["whole iteration"][1]:
-            taken = split
-    return taken
-
-
 def bal_lm_rate(prob, reps: int = 3, iters: int = 5, **kw):
     """bench.py's ba_bal_lm_iters_per_sec on ``prob``: a warm-up run, then
     ``reps`` runs of ``iters`` LM iterations (plain L2), each closed by a
@@ -228,10 +162,6 @@ def bal_times() -> dict:
            "peak_bytes": torch.cuda.max_memory_allocated()}
     out["zexplicit_lm_iters_per_sec"], _ = bal_lm_rate(prob)
     out["pcg_lm_iters_per_sec"], out["pcg_cg_iters_per_run"] = bal_lm_rate(prob, solver="pcg")
-    try:
-        out["split_ms_kernels"] = bal_stage_split(prob)
-    except AttributeError as e:          # a checkout without the stage helpers
-        out["split_ms_kernels"] = f"not measured: {e}"
     return out
 
 

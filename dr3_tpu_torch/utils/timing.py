@@ -4,15 +4,34 @@ Parity with the reference's Timer/Monitor (include/timer.hpp:17-73,
 src/timer.cpp:9-58). CUDA launches are asynchronous, so ``toc`` optionally
 synchronises the device first (``block=tensor``) so wall-clock covers the
 device work of the stage, not just its launches. A CPU tensor needs no sync.
+
+The program's spans: :func:`span` and every ``tic``/``toc`` pair open a
+``torch.profiler.record_function`` range named ``dr3.<name>`` while a
+profiler is recording, so the stages land on the profiler's timeline beside
+the device's work; with no profiler running a span is one flag test.
 """
 
 from __future__ import annotations
 
+import contextlib
 import time
 from dataclasses import dataclass, field
 from typing import Any, Dict, Optional
 
 import torch
+from torch.autograd import _profiler_enabled
+from torch.autograd.profiler import record_function
+
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A context manager around one stage of the program: the profiler's
+    range ``dr3.<name>`` while a torch.profiler is recording, else a shared
+    no-op (no range, no allocation, no host read)."""
+    if not _profiler_enabled():
+        return _OFF
+    return record_function("dr3." + name)
 
 
 @dataclass
@@ -21,8 +40,13 @@ class Timer:
     n: int = 0
     total: float = 0.0
     _t0: Optional[float] = None
+    _span: Any = field(default=None, init=False, repr=False, compare=False)
 
     def tic(self) -> None:
+        if self._span is not None:          # a tic with no toc since the last
+            self._span.__exit__(None, None, None)
+        self._span = span(self.name)
+        self._span.__enter__()
         self._t0 = time.perf_counter()
 
     def toc(self, block: Optional[torch.Tensor] = None) -> float:
@@ -32,6 +56,8 @@ class Timer:
             return 0.0
         dt = time.perf_counter() - self._t0
         self._t0 = None
+        self._span.__exit__(None, None, None)
+        self._span = None
         self.n += 1
         self.total += dt
         return dt
