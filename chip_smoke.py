@@ -104,7 +104,9 @@ Phases (any failure raises, so the exit code is non-zero):
    the true parameters and the initial cost within 1e-4 of the JAX
    package's, zexplicit accepts 5 of 5 and ends within 1e-3 of JAX's
    97,681.25 and at or below the true parameters' cost, pcg (cg_tol 1e-5,
-   q_eta 0) within 1e-4 of zexplicit, two zexplicit runs bit-equal; bench.py's
+   q_eta 0) within 1e-4 of zexplicit, two zexplicit runs bit-equal, each
+   launching the co-visible block kernels (csrc/schur.cu) once per LM
+   iteration; bench.py's
    ba_bal_lm_iters_per_sec for zexplicit and pcg (its default forcing, with
    the CG iterations), the peak device memory, and a zexplicit and a pcg LM
    iteration's device time by stage from the program's own ``dr3.ba.*``
@@ -227,11 +229,15 @@ Phases (any failure raises, so the exit code is non-zero):
 
 The kernel table (launches per general frame or per panorama, the VO rows
 also per general frame of phase 9(a), device us, bound, share of bound,
-library us; the legacy path's two rows per legacy frame) and the legacy
+library us; the legacy path's two rows per legacy frame; the co-visible
+kernels ``dr3_schur_factor`` and ``dr3_schur_blocks`` at bal-dubrovnik-88's
+shapes, each output within 1e-5 of its plain version's, the block kernel's
+library call the replaced dense ``Z.T @ Z``, after phase 7) and the legacy
 path's launches are printed before the last three lines of stdout: a JSON
 object of per-kernel results (launches: phases 4, 5, 9(a) and 10 together;
 K4's ``remap`` timed at the descriptor patches, ``warp`` at the pair
-canvas; the paste is a row of the table only), the card's name and power
+canvas; the paste is a row of the table only; the BAL kernels' from phase
+7(a)'s solve, counted from zero), the card's name and power
 limit, and ``{"ok": true, "device": {...}}``. Imports nothing of JAX or
 dr3_tpu.
 """
@@ -1671,12 +1677,84 @@ def bal_split(fn, windows: int = 3):
     return best
 
 
+def phase_schur_kernel(card):
+    """The kernels of csrc/schur.cu at bal-dubrovnik-88's shapes
+    (perfbench/gen/bal.py's problem, its first LM iteration's blocks at
+    lambda 1e-3): ``dr3_schur_factor``'s Hinv9, scaled factors and dinv
+    each within 1e-5 of its scale from the plain version's run on the card,
+    and ``dr3_schur_blocks``' 9x9 blocks each within 1e-5 of its own on the
+    plain version's factors; a table row each, the block kernel's with the
+    replaced dense ``Z.T @ Z`` of the scaled [3P, 9K] Z as the library call
+    (the factor kernel's has none: it replaces a chain of elementwise ops
+    and a scatter). Returns the two rows."""
+    from dr3_tpu_torch.ba import snavely as sn
+    from dr3_tpu_torch.ba.schur_core import _table_reducer, cam_onehot_matrix
+    from dr3_tpu_torch.io.bal import BALData
+    from dr3_tpu_torch.ops import schur
+    from perfbench.gen.bal import bal_case as cell_case
+
+    start, _ = cell_case(88, 64298, 383937, SEED)
+    prob = sn.bal_to_snavely(BALData(*(start[k] for k in ("cam_params", "points", "obs_cam",
+                                                           "obs_pt", "obs_uv"))), device=DEV)
+    K, P, O = prob.n_cams, prob.n_points, prob.n_obs
+    blocks, _ = sn._assemble_direct(prob, cam_onehot_matrix(prob.obs_cam, K), 1e9)
+    pairs = schur.schur_pairs(prob.obs_cam, prob.obs_pt,
+                              _table_reducer(blocks.obs_pt, P).table, K)
+    lam = torch.tensor(1e-3, device=DEV)
+    Hcc = blocks.Hcc.contiguous()
+    fargs = (blocks.Hpp9.contiguous(), Hcc, lam, blocks.Jcu, blocks.Jcv, blocks.Jpu,
+             blocks.Jpv, pairs)
+    got = schur.schur_factor(*fargs)
+    f_err = {}
+    for name, a, b in zip(("Hinv9", "Gs", "dinv"), got, schur._schur_factor_plain(*fargs)):
+        f_err[name] = float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+    if not max(f_err.values()) <= 1e-5:
+        raise AssertionError(f"dr3_schur_factor against its plain version: {f_err}")
+    _, G, dinv = got
+    S = schur.schur_blocks(G, dinv, Hcc, lam, pairs)
+    want = schur._schur_blocks_plain(G, dinv, Hcc, lam, pairs).view(K, 9, K, 9)
+    err = float(((S.view(K, 9, K, 9) - want).abs().amax(dim=(1, 3))
+                 / want.abs().amax(dim=(1, 3)).clamp(min=1e-30)).max())
+    del want
+    if not err <= 1e-5:
+        raise AssertionError(f"dr3_schur_blocks: a block {err:.3e} of its scale from the plain")
+    # the replaced product: the scaled dense Z the parent scattered, from the rows
+    obs = pairs.cam_obs.long()
+    rows = (3 * pairs.obs_pt.long()[obs][:, None] + torch.arange(3, device=DEV))[:, :, None]
+    cols = (9 * pairs.obs_cam.long()[obs][:, None] + torch.arange(9, device=DEV))[:, None, :]
+    Z = torch.zeros(3 * P * 9 * K, dtype=torch.float32, device=DEV)
+    Z.index_add_(0, (rows * (9 * K) + cols).reshape(-1),
+                 G.view(O, 9, 4)[:, :, :3].transpose(1, 2).reshape(-1))
+    Z = Z.view(3 * P, 9 * K)
+    row = measure(lambda: schur.schur_blocks(G, dinv, Hcc, lam, pairs),
+                  lambda: schur._schur_blocks_plain(G, dinv, Hcc, lam, pairs),
+                  library=lambda: Z.T @ Z, bound=bounds.schur_blocks(pairs, K, O),
+                  shape=f"{K} x {P} x {O}", max_abs_err=err)
+    del Z
+    f_row = measure(lambda: schur.schur_factor(*fargs),
+                    lambda: schur._schur_factor_plain(*fargs),
+                    bound=bounds.schur_factor(K, P, O), shape=f"{K} x {P} x {O}",
+                    max_abs_err=max(f_err.values()))
+    log(f"[schur] dr3_schur_factor at {K} cameras x {P} points x {O} observations: Hinv9, Gs "
+        f"and dinv within {f_err['Hinv9']:.2e}, {f_err['Gs']:.2e} and {f_err['dinv']:.2e} of "
+        f"their scale from the plain version ({card})")
+    log_row("dr3_schur_factor", f_row, card)
+    log(f"[schur] dr3_schur_blocks at {K} cameras x {P} points x {O} observations: "
+        f"{row['pairs']} pairs, {row['l2_bytes'] / 1e6:.1f} MB of factor rows staged through L2; "
+        f"each block within {err:.2e} of its scale from the plain version ({card})")
+    log_row("dr3_schur_blocks", row, card)
+    return f_row, row
+
+
 def phase_bal(card, vo):
-    """Phase 7: BAL bundle adjustment (module docstring)."""
+    """Phase 7: BAL bundle adjustment (module docstring). Returns the
+    launches of dr3_schur_factor and dr3_schur_blocks in 7(a)'s 5-iteration
+    auto solve."""
     from dr3_tpu_torch import run_ba
     from dr3_tpu_torch.ba import snavely as sn
     from dr3_tpu_torch.ba.lm import least_squares
     from dr3_tpu_torch.io.bal import load_bal
+    from dr3_tpu_torch.ops import schur
     from dr3_tpu_torch.tools.ba_time import bal_case, bal_lm_rate
     from dr3_tpu_torch.tools.make_real_bal import export_bal
 
@@ -1697,9 +1775,11 @@ def phase_bal(card, vo):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     mem0 = torch.cuda.memory_allocated()
+    schur.schur_factor.launches = schur.schur_blocks.launches = 0
     t0 = time.perf_counter()
     r_auto = sn.bundle_adjust_snavely(prob, 5, huber_delta=L2)
     c0, c_auto, n_acc = float(r_auto.initial_cost), float(r_auto.final_cost), int(r_auto.n_accepted)
+    launched = (schur.schur_factor.launches, schur.schur_blocks.launches)
     first_s = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
     log(f"[bal] (a) {K} cameras x {P} points x {O} observations, auto -> {method}: cost at "
@@ -1714,6 +1794,10 @@ def phase_bal(card, vo):
     if n_acc != 5 or not rel(c_auto, BAL_JAX_FINAL) <= 1e-3 or not c_auto <= c_true:
         raise AssertionError(f"zexplicit: {n_acc}/5 accepted, final {c_auto} (JAX "
                              f"{BAL_JAX_FINAL}, true parameters {c_true})")
+    log(f"[bal] (a) zexplicit's kernels per LM iteration: dr3_schur_factor "
+        f"{launched[0] / 5:.1f}, dr3_schur_blocks {launched[1] / 5:.1f}")
+    if launched != (5, 5):
+        raise AssertionError(f"zexplicit launched {launched} schur kernels in 5 iterations")
     r_z = sn.bundle_adjust_snavely(prob, 5, huber_delta=L2, solver="zexplicit")
     same = [k for k in sn._PARAMS if torch.equal(getattr(r_z.problem, k),
                                                   getattr(r_auto.problem, k))]
@@ -1855,6 +1939,7 @@ def phase_bal(card, vo):
         if not gap <= 1e-4:
             raise AssertionError(f"curve fit {delta}: card and CPU {gap} apart")
     log(f"[bal] phase 7: {time.perf_counter() - t_phase:.1f} s")
+    return launched
 
 
 def rot_deg(Ra, Rb) -> float:
@@ -2852,7 +2937,8 @@ def main():
                                                                                      pano_cases)
     phase_cpu_panorama()
     phase_cli(card, frames[:N_FRAMES], gt[:N_FRAMES], slice_run)
-    phase_bal(card, slice_run["vo"])
+    bal_launches = phase_bal(card, slice_run["vo"])
+    schur_rows = dict(zip(("dr3_schur_factor", "dr3_schur_blocks"), phase_schur_kernel(card)))
     legacy_launches, legacy_rows, legacy_in_path = phase_8(card, frames, gt, slice_run, loop_vo)
     long_launches, long_general = phase_long(card)
     entry_launches = phase_entry(card)
@@ -2937,8 +3023,10 @@ def main():
                    "lk_pyramid": s["track_pyramid"] + s["track_level"],
                    "lk_align": s["align_to_templates"], "sample_patches": s["sample_patches"],
                    "sparse_align": s["sparse_align"], "remap": s["remap_xy"], "warp": 0}
+    for name, n in zip(schur_rows, bal_launches):
+        per[name] = f"{n / 5:.1f} per zexplicit LM iteration (phase 7(a), {n} in 5)"
     print_table({**{k: results[k] for k in vo_rows}, **pano_rows, **k4_rows, **loop_rows,
-                 **legacy_rows}, per, in_path, card)
+                 **legacy_rows, **schur_rows}, per, in_path, card)
     log(f"[legacy] launches over its {LEGACY_N} frames (the VO path's are the JSON line's): "
         f"{json.dumps(legacy_launches)}")
     meta = {
@@ -2965,6 +3053,14 @@ def main():
                         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
                         "host_ms": r["host_ms"], "plain_host_ms": r["plain_host_ms"]})
+    # launches: phase 7(a)'s auto solve of 5 LM iterations, counted from zero
+    for (name, r), n in zip(schur_rows.items(), bal_launches):
+        kernels.append({"name": name.removeprefix("dr3_"), "route": "cuda",
+                        "source": "dr3_tpu_torch/csrc/schur.cu", "replaces": None,
+                        "launches": n, "launches_per_lm_iter": n / 5,
+                        **{k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                             "bound_by", "library_ms", "host_ms",
+                                             "plain_host_ms")}})
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -161,7 +161,8 @@ def _table_reducer(keys: torch.Tensor, num_segments: int, active=None,
     order, and a sum over it. d is ``width`` when the caller knows from the
     problem's shape that no key holds more rows (no host read, a fixed
     shape: the window BA in a CUDA graph); else the largest count, read to
-    the host once, here."""
+    the host once, here. The table is kept as ``by_key.table`` (None where
+    d is 0)."""
     keys = keys.long()
     if active is None:
         active = torch.ones_like(keys, dtype=torch.bool)
@@ -179,6 +180,7 @@ def _table_reducer(keys: torch.Tensor, num_segments: int, active=None,
         flat = terms.reshape(terms.shape[0], -1)
         padded = torch.cat([flat, torch.zeros_like(flat[:1])])
         return padded[tbl].sum(dim=1).reshape((num_segments,) + terms.shape[1:])
+    by_key.table = tbl
     return by_key
 
 

@@ -16,18 +16,20 @@ linearises and assembles in one pass (:func:`_assemble_direct`) and keeps
 the camera-point coupling W = Jc^T Jp factored as the weighted Jacobian
 columns: every product with W goes through the 2-dim residual space.
 ``zexplicit`` is the exact reduced camera system by a square-root
-factorisation, S = Hcc - Z^T Z, with one dense [3P, 9K] Z and one float32
-product; ``pcg`` is matrix-free CG with the SCHUR_JACOBI preconditioner.
-Past the size limits, or with ``explicit``, the solve is the generic
-observation-keyed Schur core (ba/schur_core.py) at a 9-wide camera block.
+factorisation, S = Hcc - Z^T Z, built block by block from the co-visible
+observation pairs (ops/schur.py, csrc/schur.cu on the card): Z itself is
+never formed; ``pcg`` is matrix-free CG with the SCHUR_JACOBI
+preconditioner. Past the size limits, or with ``explicit``, the solve is
+the generic observation-keyed Schur core (ba/schur_core.py) at a 9-wide
+camera block.
 
 Sums are taken in a fixed order, so an LM run gives the same bits from run
 to run on the card: camera-keyed sums and broadcasts are products with the
 0/1 membership matrix E (exact for a broadcast, fixed order for a sum; both
 need float32 products, torch's default, TF32 off), point-keyed sums a
 gather into a [points, d] table of row ids, built once per LM run (one host
-read). The one scatter-add is the Z scatter (:func:`_z_factor`), which is
-exact in any order. The LM loop reads nothing back to the host; ``pcg``
+read, which brings zexplicit's pair count too), and each entry of the reduced camera matrix one owner's sum of its
+pairs in a fixed order. The LM loop reads nothing back to the host; ``pcg``
 reads one flag per CG iteration.
 """
 
@@ -44,6 +46,8 @@ from dr3_tpu_torch.ba.schur_lm import _EXPLICIT_MAX_CAMS
 from dr3_tpu_torch.geometry.lie import SE3, SO3, hat, quat_normalize, quat_rotate, \
     quat_to_matrix
 from dr3_tpu_torch.geometry.linalg import _chol_factor_small, _chol_solve_factored
+from dr3_tpu_torch.ops.schur import _damp_hcc, _inv3x3_flat, pair_sizes, schur_blocks, \
+    schur_factor, schur_pairs
 from dr3_tpu_torch.utils.timing import span
 
 
@@ -362,34 +366,6 @@ def _assemble_direct(p: SnavelyProblem, E, huber_delta: float, by_pt=None):
                         Jpu=Jpu, Jpv=Jpv, obs_cam=oc, obs_pt=op, active=valid), cost
 
 
-def _inv3x3_flat(h9, lam):
-    """Damped inverse of symmetric 3x3 blocks stored as [P, 9] columns
-    (adjugate / determinant). Each block is first divided by its max
-    |entry|: real-structure Hpp blocks reach ~1e13, whose raw determinant
-    overflows float32 to inf - inf = NaN. inv(H) = inv(H/s)/s."""
-    a = h9[:, 0] * (1.0 + lam) + 1e-8
-    e = h9[:, 4] * (1.0 + lam) + 1e-8
-    i = h9[:, 8] * (1.0 + lam) + 1e-8
-    b, c, f = h9[:, 1], h9[:, 2], h9[:, 5]
-    d, g, h = h9[:, 3], h9[:, 6], h9[:, 7]
-    m = torch.stack([a, b, c, d, e, f, g, h, i], dim=-1)
-    inv_s = 1.0 / torch.clamp(m.abs().amax(dim=-1), min=1e-30)
-    a, b, c, d, e, f, g, h, i = (m * inv_s[:, None]).unbind(-1)
-    A00 = e * i - f * h
-    A01 = c * h - b * i
-    A02 = b * f - c * e
-    A10 = f * g - d * i
-    A11 = a * i - c * g
-    A12 = c * d - a * f
-    A20 = d * h - e * g
-    A21 = b * g - a * h
-    A22 = a * e - b * d
-    det = a * A00 + b * A10 + c * A20
-    inv_det = inv_s / torch.where(det.abs() < 1e-20, torch.full_like(det, 1e-20), det)
-    return torch.stack([A00, A01, A02, A10, A11, A12, A20, A21, A22], dim=-1) \
-        * inv_det[:, None]                                               # [P, 9]
-
-
 def _mv3(h9, x):
     """[P, 9] flat 3x3 blocks times [P, 3] vectors -> [P, 3]."""
     return torch.stack([
@@ -398,31 +374,16 @@ def _mv3(h9, x):
         h9[:, 6] * x[:, 0] + h9[:, 7] * x[:, 1] + h9[:, 8] * x[:, 2]], dim=-1)
 
 
-def _chol3_flat(h9):
-    """Lower Cholesky factor of SPD 3x3 blocks stored flat [P, 9] -> [P, 6]
-    columns (l00, l10, l11, l20, l21, l22)."""
-    a, b, c = h9[:, 0], h9[:, 1], h9[:, 2]
-    e, f, i = h9[:, 4], h9[:, 5], h9[:, 8]
-    l00 = torch.sqrt(torch.clamp(a, min=1e-30))
-    l10 = b / l00
-    l20 = c / l00
-    l11 = torch.sqrt(torch.clamp(e - l10 * l10, min=1e-30))
-    l21 = (f - l20 * l10) / l11
-    l22 = torch.sqrt(torch.clamp(i - l20 * l20 - l21 * l21, min=1e-30))
-    return torch.stack([l00, l10, l11, l20, l21, l22], dim=-1)
-
-
-# dense-Z ceiling: the [3P, 9K] square-root factor of the Schur correction
-# must fit comfortably in device memory (float32)
+# auto's zexplicit ceiling: the [3P, 9K] float32 Z of the square-root
+# factorisation. The port forms no Z (its pair list holds two ids a pair,
+# n_p (n_p + 1) / 2 pairs a point seen n_p times), but auto routes as the JAX
+# package does
 _Z_MAX_BYTES = 2 * 1024 ** 3
 
 
 def _damp_blocks(blocks: DirectBlocks, lam):
     """(Hcc + diag(lam * diag Hcc + 1e-8), the damped point inverses [P, 9])."""
-    eye9 = torch.eye(9, dtype=blocks.Hcc.dtype, device=blocks.Hcc.device)
-    diag_c = torch.diagonal(blocks.Hcc, dim1=-2, dim2=-1)
-    Hcc_d = blocks.Hcc + eye9 * (lam * diag_c + 1e-8)[..., None, :]
-    return Hcc_d, _inv3x3_flat(blocks.Hpp9, lam)
+    return _damp_hcc(blocks.Hcc, lam), _inv3x3_flat(blocks.Hpp9, lam)
 
 
 def _pair(blocks: DirectBlocks, per_obs3):
@@ -434,59 +395,6 @@ def _reduced_rhs(blocks: DirectBlocks, Hinv9, by_cam):
     """rhs_c = bc - by_cam(Jc^T Jp Hinv bp), through t = Jp (Hinv bp)."""
     tu, tv = _pair(blocks, _mv3(Hinv9, blocks.bp)[blocks.obs_pt])
     return blocks.bc - by_cam(blocks.Jcu * tu[:, None] + blocks.Jcv * tv[:, None])
-
-
-def _z_factor(blocks: DirectBlocks, Hinv9):
-    """Dense Z [3P, 9K] with Z^T Z = sum_p W_p Hpp^-1 W_p^T: with Hpp^-1 =
-    L L^T per point, the (point, camera) block is L^T Jp^T Jc of the
-    observation, built from three [O] combinations of the point columns."""
-    K = blocks.Hcc.shape[0]
-    P = blocks.Hpp9.shape[0]
-    op, oc = blocks.obs_pt, blocks.obs_cam
-    O = op.shape[0]
-    l0, l1, l2, l3, l4, l5 = _chol3_flat(Hinv9)[op].unbind(1)
-    # au_r = sum_j L[j, r] Jpu_j; L's columns (l00, l10, l20), (0, l11, l21),
-    # (0, 0, l22)
-    def lcols(J):
-        return torch.stack([l0 * J[:, 0] + l1 * J[:, 1] + l3 * J[:, 2],
-                            l2 * J[:, 1] + l4 * J[:, 2], l5 * J[:, 2]], dim=1)
-
-    au, av = lcols(blocks.Jpu), lcols(blocks.Jpv)                       # [O, 3]
-    zupd = blocks.Jcu[:, None, :] * au[:, :, None] + blocks.Jcv[:, None, :] * av[:, :, None]
-    rows = 3 * op[:, None] + torch.arange(3, device=op.device)          # [O, 3]
-    cols = 9 * oc[:, None] + torch.arange(9, device=oc.device)          # [O, 9]
-    flat_idx = (rows[:, :, None] * (9 * K) + cols[:, None, :]).reshape(O * 27)
-    # The one scatter-add of the BA layer, and it gives the same bits in any
-    # order: a camera observes a point once, so a slot gets one non-zero term
-    # (two would still commute exactly); the other rows that land there are
-    # zero-weight padding (ids clamped), whose terms are exactly 0 (x + 0 = x;
-    # +0 + -0 = +0 from the +0 start). It must stay an add, not a set, for
-    # those colliding padding rows.
-    Z = torch.zeros(3 * P * 9 * K, dtype=zupd.dtype, device=zupd.device)
-    Z.index_add_(0, flat_idx, zupd.reshape(O * 27))
-    return Z.view(3 * P, 9 * K)
-
-
-def _reduced_camera_matrix(Z, Hcc_d):
-    """(S~, dinv): the Jacobi-scaled reduced camera matrix S~ = D^-1/2 (Hcc_d
-    - Z^T Z) D^-1/2, D = diag S, and D^-1/2. Z's columns are scaled, in
-    place, BEFORE the float32 product, so S~ accumulates with O(eps)
-    absolute error: scaling after the product commits ~|S| eps errors first,
-    which on real-structure problems (diag S spreads ~1e14) lost PSD-ness
-    and gave NaN factorisations at small lambda. diag S is Hcc_d's diagonal
-    less Z's column norms."""
-    K = Hcc_d.shape[0]
-    hdiag = torch.diagonal(Hcc_d, dim1=-2, dim2=-1).reshape(9 * K)
-    colsq = (Z * Z).sum(dim=0)
-    sdiag = torch.maximum(hdiag - colsq, 1e-10 * torch.clamp(hdiag, min=1e-20))
-    dinv = torch.rsqrt(sdiag)
-    Z.mul_(dinv)
-    d2 = dinv.view(K, 9)
-    S = -(Z.T @ Z)                                      # float32, no TF32
-    S4 = S.view(K, 9, K, 9)
-    kk = torch.arange(K, device=S.device)
-    S4[kk, :, kk, :] += Hcc_d * (d2[:, :, None] * d2[:, None, :])
-    return S, dinv
 
 
 def _camera_step(S, rhs_c, dinv, cam_fixed):
@@ -516,22 +424,26 @@ def _back_substitute(blocks: DirectBlocks, dc, cam_fixed, Hinv9, to_obs, by_pt):
     return _mv3(Hinv9, blocks.bp - up)
 
 
-def _solve_explicit_direct(blocks: DirectBlocks, lam, cam_fixed, E, by_pt=None):
+def _solve_explicit_direct(blocks: DirectBlocks, lam, cam_fixed, E, by_pt=None, pairs=None):
     """The exact dense Schur step by the square-root factorisation: the
-    correction sum_p W_p Hpp^-1 W_p^T is Z^T Z (:func:`_z_factor`), one
-    float32 product of [9K, 3P] by [3P, 9K], and the reduced [9K, 9K]
-    system solves by Cholesky. Z costs 12 P K 9 bytes; callers route to pcg
-    above ``_Z_MAX_BYTES``. The same reduced system as
+    correction sum_p W_p Hpp^-1 W_p^T is Z^T Z, summed block by block over
+    co-visible observation pairs (ops/schur.py: ``pairs``, built here from
+    ``by_pt``'s point table when None), into the Jacobi-scaled reduced
+    [9K, 9K] system, which solves by Cholesky. The same reduced system as
     schur_core.solve_schur(method='explicit'). Returns (dc, dp)."""
-    by_cam, to_obs = _camera_reducer(blocks.obs_cam, blocks.Hcc.shape[0], E)
+    K = blocks.Hcc.shape[0]
+    by_cam, to_obs = _camera_reducer(blocks.obs_cam, K, E)
     if by_pt is None:
         by_pt = _table_reducer(blocks.obs_pt, blocks.Hpp9.shape[0])
+    if pairs is None:
+        pairs = schur_pairs(blocks.obs_cam, blocks.obs_pt, by_pt.table, K)
     with span("ba.z_build"):
-        Hcc_d, Hinv9 = _damp_blocks(blocks, lam)
-        Z = _z_factor(blocks, Hinv9)
+        Hcc = blocks.Hcc.contiguous()
+        Hinv9, G, dinv = schur_factor(blocks.Hpp9.contiguous(), Hcc, lam, blocks.Jcu,
+                                      blocks.Jcv, blocks.Jpu, blocks.Jpv, pairs)
     with span("ba.ztz"):
-        S, dinv = _reduced_camera_matrix(Z, Hcc_d)
-    del Z                                # freed before the Cholesky
+        S = schur_blocks(G, dinv, Hcc, lam, pairs)
+    del G                                # freed before the Cholesky
     with span("ba.camera_solve"):
         dc = _camera_step(S, _reduced_rhs(blocks, Hinv9, by_cam), dinv, cam_fixed)
     with span("ba.back_substitute"):
@@ -692,7 +604,15 @@ def bundle_adjust_snavely(problem: SnavelyProblem, max_iters: int = 30,
         # constant across the loop
         E = cam_onehot_matrix(problem.obs_cam, K) if use_direct else None
         fast = use_direct and method in ("pcg", "zexplicit")
-        by_pt = _table_reducer(problem.obs_pt.long().clamp(0, P - 1), P) if fast else None
+        op = problem.obs_pt.long().clamp(0, P - 1)
+        by_pt = pairs = None
+        if fast and method == "zexplicit":
+            # the solve's one host read: the table's width and the pair count
+            d, n = pair_sizes(problem.obs_cam, op, K, P)
+            by_pt = _table_reducer(op, P, width=d)
+            pairs = schur_pairs(problem.obs_cam, problem.obs_pt, by_pt.table, K, n)
+        elif fast:
+            by_pt = _table_reducer(op, P)
 
         p = problem
         lam = torch.tensor(lambda0, dtype=torch.float32, device=dev)
@@ -705,7 +625,8 @@ def bundle_adjust_snavely(problem: SnavelyProblem, max_iters: int = 30,
                     with span("ba.assemble"):
                         blocks, _ = _assemble_direct(p, E, huber_delta, by_pt)
                     if method == "zexplicit":
-                        dc, dpt = _solve_explicit_direct(blocks, lam, p.cam_fixed, E, by_pt)
+                        dc, dpt = _solve_explicit_direct(blocks, lam, p.cam_fixed, E, by_pt,
+                                                         pairs)
                     else:
                         with span("ba.pcg"):
                             dc, dpt, n_cg = _solve_pcg_direct(blocks, lam, p.cam_fixed, E,

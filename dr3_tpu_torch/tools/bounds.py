@@ -82,6 +82,48 @@ OPS_CYLINDRICAL = 16      # the spherical field without sin b, cos b and their
 OPS_HOMOGRAPHY = 15       # 6 products, 6 sums, 2 divisions, 1 guard
 
 
+# the reduced camera matrix of BAL (csrc/schur.cu); a factor G_o is 27 floats
+OPS_SCHUR_INV3 = 75       # per point, the damped inverse: damping 6, max |entry| 17,
+                          # the scale's reciprocal and 9 products 10, adjugate 27,
+                          # determinant 5, its reciprocal 1, 9 products
+OPS_SCHUR_CHOL3 = 17      # per point, its Cholesky factor: 3 clamps, 3 square roots,
+                          # 3 divisions, 4 products, 4 differences
+OPS_SCHUR_FACTOR = 180    # per observation: L^T Jp^T for u and v 18, G_o 81 (27
+                          # entries of 2 products and a sum), its column squares 45,
+                          # their sum into the camera's 9, the scaling 27
+OPS_SCHUR_DINV = 9 * 8    # per camera: damping 3, difference, floor 2, square root,
+                          # reciprocal, each of 9 columns
+OPS_SCHUR_PAIR = 81 * 6   # per pair and entry of its 9x9 block: 3 products, 2 sums
+                          # over the factor's rows, the sum into the entry
+OPS_SCHUR_DIAG = 81 * 5   # per camera: the damping 2, d_a d_b, the product, the sum
+
+
+def schur_factor(n_cams: int, n_points: int, n_obs: int) -> dict:
+    """dr3_schur_factor: bytes of Hpp9 [P, 9], Hcc's diagonal, the damping,
+    the Jacobian columns (24 floats an observation), its point and row ids
+    and the camera offsets read once, Hinv9, the factors (27 floats an
+    observation) and dinv written once; operations per point, observation
+    and camera."""
+    K, P, O = n_cams, n_points, n_obs
+    n_bytes = 4 * (9 * P + 9 * K + 1 + 24 * O + 2 * O + K + 1 + 9 * P + 27 * O + 9 * K)
+    n_ops = P * (OPS_SCHUR_INV3 + OPS_SCHUR_CHOL3) + O * OPS_SCHUR_FACTOR + K * OPS_SCHUR_DINV
+    return bound(n_bytes, n_ops)
+
+
+def schur_blocks(pairs, n_cams: int, n_obs: int) -> dict:
+    """dr3_schur_blocks at this call's pairs (ops/schur.py SchurPairs):
+    bytes of the scaled factors (27 floats an observation), dinv, Hcc's
+    diagonal blocks, the damping, the pairs' two rows and the block offsets
+    read once, S [9K, 9K] written once; operations per pair and per camera.
+    Also ``l2_bytes``: the two padded rows each pair stages, as the kernel
+    loads them."""
+    K, O = n_cams, n_obs
+    n = int(pairs.qi.shape[0])
+    n_bytes = 4 * (27 * O + 9 * K + 81 * K + 1 + 2 * n + K * K + 1 + 81 * K * K)
+    n_ops = n * OPS_SCHUR_PAIR + K * OPS_SCHUR_DIAG
+    return {**bound(n_bytes, n_ops), "pairs": n, "l2_bytes": 2 * 36 * 4 * n}
+
+
 def bound(n_bytes: float, n_ops: float) -> dict:
     """{"bound_ms", "bound_by", "bytes", "ops"} of a call's work."""
     t_bytes = n_bytes / HBM_BYTES_PER_S

@@ -584,7 +584,7 @@ def test_bundle_adjust_card_matches_cpu(dev, solver):
 def _bal_problem(dev, padded=False):
     """bench.py's BAL generator at 24 x 6000 x 800 per camera; ``padded``
     appends every observation again as a zero-weight row (clamped ids that
-    collide with the live ones in the Z scatter)."""
+    collide with the live ones in the co-visible block sums)."""
     from dr3_tpu_torch.ba.snavely import bal_to_snavely
     from dr3_tpu_torch.tools.ba_time import bal_case
 
@@ -605,23 +605,49 @@ def _bal_blocks(p):
     return _assemble_direct(p, E, 1e9), E
 
 
-def test_bal_z_scatter_is_bit_stable(dev):
-    """The one scatter-add of the BA layer (snavely._z_factor), with every
+def test_bal_schur_blocks_bit_stable(dev):
+    """The co-visible block kernels (ops/schur.py) on the card: with every
     observation present again as a zero-weight padding row whose ids
-    collide with it: Z is bit-equal to the unpadded problem's, and two
-    explicit solves on the padded blocks are bit-equal."""
-    from dr3_tpu_torch.ba.snavely import _damp_blocks, _solve_explicit_direct, _z_factor
+    collide with it, S~ is bit-equal to the unpadded problem's on the same
+    Hcc and Hpp; two explicit solves on the padded blocks are bit-equal;
+    the kernels match their plain versions run on the card (Hinv9, G and
+    dinv within 1e-5 of their scale, each 9x9 block of S~ within 1e-5 of
+    its own); an LM run launches each kernel once per iteration."""
+    from dr3_tpu_torch.ba.schur_core import _table_reducer
+    from dr3_tpu_torch.ba.snavely import _solve_explicit_direct, bundle_adjust_snavely
+    from dr3_tpu_torch.ops import schur
 
     lam = torch.tensor(1e-3, device=dev)
     p, pad = _bal_problem(dev), _bal_problem(dev, padded=True)
     (blocks, _), _ = _bal_blocks(p)
     (blocks2, _), E2 = _bal_blocks(pad)
-    _, Hinv9 = _damp_blocks(blocks, lam)
-    assert torch.equal(_z_factor(blocks, Hinv9), _z_factor(blocks2, Hinv9))
-    one = _solve_explicit_direct(blocks2, lam, pad.cam_fixed, E2)
-    two = _solve_explicit_direct(blocks2, lam, pad.cam_fixed, E2)
-    assert _bits_equal(one, two)
-    assert torch.isfinite(one[0]).all() and float(one[0][1:].abs().max()) > 0
+    Hcc, Hpp9 = blocks.Hcc.contiguous(), blocks.Hpp9.contiguous()
+
+    def build(b):
+        pairs = schur.schur_pairs(b.obs_cam, b.obs_pt,
+                                  _table_reducer(b.obs_pt, b.Hpp9.shape[0]).table, p.n_cams)
+        args = (Hpp9, Hcc, lam, b.Jcu, b.Jcv, b.Jpu, b.Jpv, pairs)
+        Hinv9, G, dinv = schur.schur_factor(*args)
+        return (Hinv9, G, dinv, schur.schur_blocks(G, dinv, Hcc, lam, pairs)), args, pairs
+
+    one, args, pairs = build(blocks)
+    assert torch.equal(build(blocks2)[0][3], one[3])
+    a = _solve_explicit_direct(blocks2, lam, pad.cam_fixed, E2)
+    b = _solve_explicit_direct(blocks2, lam, pad.cam_fixed, E2)
+    assert _bits_equal(a, b)
+    assert torch.isfinite(a[0]).all() and float(a[0][1:].abs().max()) > 0
+    Hinv9, G, dinv = schur._schur_factor_plain(*args)
+    for got, want in zip(one[:3], (Hinv9, G, dinv)):
+        assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+    S = schur._schur_blocks_plain(G, dinv, Hcc, lam, pairs)
+    K = p.n_cams
+    got4 = one[3].view(K, 9, K, 9)
+    want4 = S.view(K, 9, K, 9)
+    err = (got4 - want4).abs().amax(dim=(1, 3))
+    assert bool((err <= 1e-5 * want4.abs().amax(dim=(1, 3))).all())
+    f0, b0 = schur.schur_factor.launches, schur.schur_blocks.launches
+    bundle_adjust_snavely(p, 5, huber_delta=1e9, solver="zexplicit")
+    assert schur.schur_factor.launches - f0 == 5 and schur.schur_blocks.launches - b0 == 5
 
 
 def test_bal_assembly_card_matches_cpu(dev):
@@ -640,8 +666,8 @@ def test_bal_assembly_card_matches_cpu(dev):
 @pytest.mark.parametrize("solver", ["zexplicit", "pcg", "explicit"])
 def test_bundle_adjust_snavely_repeats_bit_equal(dev, solver):
     """Two LM runs give the same bits (the point sums a fixed-order table,
-    the camera sums 0/1 products, the Z scatter exact in any order) and the
-    same CG iterations."""
+    the camera sums 0/1 products, each co-visible block of S one owner's
+    fixed-order sum) and the same CG iterations."""
     from dr3_tpu_torch.ba.snavely import bundle_adjust_snavely
 
     p = _bal_problem(dev)

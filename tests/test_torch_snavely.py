@@ -132,10 +132,11 @@ def test_direct_solves_match_on_the_same_blocks(rng, solve):
 
 
 def test_z_scatter_adds_padding_rows_that_collide(rng):
-    """The Z scatter must add: zero-weight padding rows carry clamped
-    (camera, point) ids that collide with live observations. Duplicating
-    every observation as a padding row leaves the explicit step unchanged
-    bit for bit."""
+    """Zero-weight padding rows carry clamped (camera, point) ids that
+    collide with live observations; in the co-visible block sums they pair
+    with the live rows and must bring exact zeros. Duplicating every
+    observation as a padding row leaves the explicit step unchanged bit for
+    bit."""
     d = rand_bal(rng, n_cams=4, n_pts=40, noise=2.0, pt_noise=0.1)
     _, pt = _both(d)
     E = cam_onehot_matrix(pt.obs_cam, pt.n_cams)
