@@ -50,8 +50,9 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from dr3_tpu_torch.geometry.linalg import (_chol_factor_small,
+from dr3_tpu_torch.geometry.linalg import (_chol_factor_small, _chol_inverse_factored,
                                            _chol_solve_factored, chol3, inv3x3)
+from dr3_tpu_torch.utils.timing import span
 
 
 class SchurBlocks(NamedTuple):
@@ -72,7 +73,8 @@ class SchurBlocks(NamedTuple):
 
 
 # above this many [O, K] one-hot entries camera sums go through the keyed
-# scan instead of the membership matrix (as the JAX package's 256M limit)
+# table instead of the membership matrix (as the JAX package's 256M limit),
+# and snavely's auto leaves its fast paths for the generic core
 _ONEHOT_MAX_ELEMS = 256 * 1024 * 1024
 
 
@@ -456,14 +458,16 @@ def _solve_schur(blocks: SchurBlocks, lam, cam_fixed, *, method, d_max, jacobi,
     the loop's exit test (:class:`PCG` runs the same iterations without)."""
     if method not in ("explicit", "zexplicit", "pcg"):
         raise ValueError(f"unknown schur method {method!r}")
-    red = reduce_system(blocks, lam, cam_fixed, point_sorted=point_sorted,
-                        cam_onehot=cam_onehot, pt_width=pt_width)
+    with span("ba.reduce"):
+        red = reduce_system(blocks, lam, cam_fixed, point_sorted=point_sorted,
+                            cam_onehot=cam_onehot, pt_width=pt_width)
     if method == "pcg":
         dc, dg, n_cg = _pcg(red, cam_fixed, cg_iters, cg_tol, q_eta)
     else:
         dc, dg = dense_camera_solve(red, method, d_max, jacobi)
         n_cg = 0
-    return dc, back_substitute(red, dc, dg), dg, n_cg
+    with span("ba.back_substitute"):
+        return dc, back_substitute(red, dc, dg), dg, n_cg
 
 
 def dense_camera_solve(red: Reduced, method: str, d_max, jacobi: bool,
@@ -523,7 +527,9 @@ class PCG:
         M = red.Hcc_d - red.by_cam(torch.einsum("ocl,odl->ocd", red.WHinv, b.AtB))
         eyeC = torch.eye(C, dtype=M.dtype, device=M.device)
         M = torch.where(cam_fixed[:, None, None], eyeC, M) + 1e-7 * eyeC
-        self.M_chol = _chol_factor_small(M)
+        # inverted once here, so that each step applies the preconditioner as
+        # one product (eager torch launches every op of an unrolled solve)
+        self.M_inv = _chol_inverse_factored(_chol_factor_small(M))
         self.keep_c = red.keep[:, None]
         self.fixed_c = 1.0 - self.keep_c
         if red.border is not None:
@@ -554,7 +560,7 @@ class PCG:
     def m_inv(self, r):
         rc, rg = r
         zg = _chol_solve_factored(self.gg_chol, rg) if self.red.border is not None else rg
-        return _chol_solve_factored(self.M_chol, rc), zg
+        return torch.einsum("kcd,kd->kc", self.M_inv, rc), zg
 
     @staticmethod
     def dot(a, b):
@@ -602,15 +608,23 @@ class PCG:
 
 def _pcg(red: Reduced, cam_fixed, cg_iters, cg_tol, q_eta):
     """:class:`PCG` run to its end by the host, one read of the exit flag
-    per iteration; returns (dc, dg or None, iterations run)."""
+    per iteration; returns (dc, dg or None, iterations run). The spans are
+    the host loop's: :meth:`PCG.step` itself has none (the VO's loop
+    program captures it)."""
     from dr3_tpu_torch.utils.cudagraph import Slots
 
-    cg = PCG(red, cam_fixed, cg_iters, cg_tol, q_eta)
-    S = Slots()
-    cg.start(S)
+    with span("ba.cg_setup"):
+        cg = PCG(red, cam_fixed, cg_iters, cg_tol, q_eta)
+        S = Slots()
+        cg.start(S)
     n = 0
-    while bool(S["cg_go"]):                  # the loop's one host read
-        cg.step(S)
+    while True:
+        with span("ba.cg_read"):
+            go = bool(S["cg_go"])            # the loop's one host read
+        if not go:
+            break
+        with span("ba.cg_step"):
+            cg.step(S)
         n += 1
     dc, dg = cg.solution(S)
     return dc, dg, n

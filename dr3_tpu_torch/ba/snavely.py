@@ -40,12 +40,12 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from dr3_tpu_torch.ba.schur_core import (_camera_reducer, _solve_schur, _table_reducer,
-                                         assemble_blocks, cam_onehot_matrix)
+from dr3_tpu_torch.ba.schur_core import (_ONEHOT_MAX_ELEMS, _camera_reducer, _solve_schur,
+                                         _table_reducer, assemble_blocks, cam_onehot_matrix)
 from dr3_tpu_torch.ba.schur_lm import _EXPLICIT_MAX_CAMS
 from dr3_tpu_torch.geometry.lie import SE3, SO3, hat, quat_normalize, quat_rotate, \
     quat_to_matrix
-from dr3_tpu_torch.geometry.linalg import _chol_factor_small, _chol_solve_factored
+from dr3_tpu_torch.geometry.linalg import _chol_factor_small, _chol_inverse_factored
 from dr3_tpu_torch.ops.schur import _damp_hcc, _inv3x3_flat, pair_sizes, schur_blocks, \
     schur_factor, schur_pairs
 from dr3_tpu_torch.utils.timing import span
@@ -482,7 +482,7 @@ def _solve_pcg_direct(blocks: DirectBlocks, lam, cam_fixed, E, cg_iters: int,
     M = Hcc_d - by_cam(mm.reshape(O, 81)).view(K, 9, 9)
     eye9 = torch.eye(9, dtype=M.dtype, device=M.device)
     M = torch.where(cam_fixed[:, None, None], eye9, M) + 1e-7 * eye9
-    M_chol = _chol_factor_small(M)
+    M_inv = _chol_inverse_factored(_chol_factor_small(M))     # applied as one product
 
     keep = (~cam_fixed).to(Jcu.dtype)[:, None]                          # [K, 1]
     fixed_c = 1.0 - keep
@@ -511,7 +511,7 @@ def _solve_pcg_direct(blocks: DirectBlocks, lam, cam_fixed, E, cg_iters: int,
     bs = dot(b, b)
     x = torch.zeros_like(b)
     r = b
-    z = _chol_solve_factored(M_chol, r)
+    z = torch.einsum("kcd,kd->kc", M_inv, r)
     p = z
     rz = dot(r, z)
     q_prev = q_cur = torch.zeros_like(bs)
@@ -526,7 +526,7 @@ def _solve_pcg_direct(blocks: DirectBlocks, lam, cam_fixed, E, cg_iters: int,
         alpha = rz / torch.clamp(dot(p, Ap), min=1e-30)
         x = x + alpha * p
         r = r - alpha * Ap
-        z = _chol_solve_factored(M_chol, r)
+        z = torch.einsum("kcd,kd->kc", M_inv, r)
         rz_new = dot(r, z)
         p = z + rz_new / torch.clamp(rz, min=1e-30) * p
         rz = rz_new
@@ -551,7 +551,7 @@ def _pick_method(problem: SnavelyProblem, solver: str) -> tuple[str, bool]:
     fits). ``auto`` prefers the exact square-root dense Schur whenever dense
     Z fits, then the dense generic solve up to ``_EXPLICIT_MAX_CAMS``
     cameras, then matrix-free PCG."""
-    use_direct = problem.n_obs * problem.n_cams <= 256 * 1024 * 1024
+    use_direct = problem.n_obs * problem.n_cams <= _ONEHOT_MAX_ELEMS
     z_fits = 12 * problem.n_points * problem.n_cams * 9 <= _Z_MAX_BYTES
     method = solver
     if solver == "auto":

@@ -46,6 +46,18 @@ def _chol_solve_factored(L, b: torch.Tensor) -> torch.Tensor:
     return torch.stack(x, dim=-1)
 
 
+def _chol_inverse_factored(L) -> torch.Tensor:
+    """[..., n, n] inverse of the matrix whose unrolled lower factor is L
+    (:func:`_chol_factor_small`): the n unit columns solved at once, so a
+    caller that applies it often pays one product a time, not the ~n^2
+    elementwise launches of :func:`_chol_solve_factored`."""
+    n = len(L)
+    Lb = [[None if x is None else x[..., None] for x in row] for row in L]
+    eye = torch.eye(n, dtype=L[0][0].dtype, device=L[0][0].device)
+    # row j of the solve is A^-1 e_j, column j of the inverse
+    return _chol_solve_factored(Lb, eye.expand(L[0][0].shape + (n, n))).transpose(-1, -2)
+
+
 def chol_solve_small(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Batched Cholesky solve for tiny SPD systems A [..., n, n], b [..., n],
     fully unrolled (n small, <= ~9)."""

@@ -101,6 +101,20 @@ def test_chol_solve_chol3_inv3x3(rng):
                                rtol=1e-5, atol=1e-7)
 
 
+def test_chol_inverse_applies_as_the_solve(rng):
+    """The preconditioner's block inverse from the unrolled factor (PCG
+    applies it as one product) against the JAX package's unrolled solve."""
+    M = rng.normal(size=(10, 9, 9)).astype(np.float32)
+    A = M @ M.transpose(0, 2, 1) + 9 * np.eye(9, dtype=np.float32)
+    b = rng.normal(size=(10, 9)).astype(np.float32)
+    inv = tlinalg._chol_inverse_factored(tlinalg._chol_factor_small(tt(A)))
+    np.testing.assert_allclose(nn(inv), np.linalg.inv(A.astype(np.float64)), rtol=1e-4,
+                               atol=1e-6)
+    np.testing.assert_allclose(nn(torch.einsum("kcd,kd->kc", inv, tt(b))),
+                               nn(jlinalg.chol_solve_small(jnp.asarray(A), jnp.asarray(b))),
+                               rtol=1e-5, atol=1e-6)
+
+
 def test_inv3x3_large_hessian_blocks(rng):
     """BA Hpp blocks reach ~1e13: the max-|entry| normalisation keeps the
     determinant finite in float32 (ROADMAP round-5 fix)."""

@@ -24,7 +24,8 @@ STAGES = {"zexplicit": ["dr3.ba.assemble", "dr3.ba.z_build", "dr3.ba.ztz",
                         "dr3.ba.camera_solve", "dr3.ba.back_substitute", "dr3.ba.accept"],
           "pcg": ["dr3.ba.assemble", "dr3.ba.pcg", "dr3.ba.accept"],
           "explicit": ["dr3.ba.assemble", "dr3.ba.schur_solve", "dr3.ba.accept"]}
-NESTED = {"pcg": {"dr3.ba.pcg": ["dr3.ba.back_substitute"]}}
+NESTED = {"pcg": {"dr3.ba.pcg": ["dr3.ba.back_substitute"]},
+          "explicit": {"dr3.ba.schur_solve": ["dr3.ba.reduce", "dr3.ba.back_substitute"]}}
 
 
 @pytest.fixture(scope="module")
@@ -74,6 +75,29 @@ def test_solve_spans_on_each_path(prob, solver):
         b = getattr(plain.problem, k) if k in sn._PARAMS else getattr(plain, k)
         assert torch.equal(a, b), k
     assert res.cg_iters == plain.cg_iters
+
+
+def test_generic_pcg_spans(prob, monkeypatch):
+    """The generic pcg path (past the one-hot's limit): inside each
+    ``schur_solve`` one ``reduce``, one ``cg_setup``, a ``cg_read`` before
+    each ``cg_step`` and one more that ends the loop, one
+    ``back_substitute``; as many ``cg_step`` as the result's CG count."""
+    monkeypatch.setattr(sn, "_ONEHOT_MAX_ELEMS", 0)
+    assert sn._pick_method(prob, "pcg") == ("pcg", False)
+    res, found = _traced(lambda: sn.bundle_adjust_snavely(prob, ITERS, solver="pcg"))
+    names = Counter(n for n, _ in found)
+    assert names["dr3.ba.cg_step"] == res.cg_iters > 0
+    assert names["dr3.ba.reduce"] == names["dr3.ba.schur_solve"] == ITERS
+    assert names["dr3.ba.cg_read"] == res.cg_iters + ITERS
+    solves = [i for i, (n, _) in enumerate(found) if n == "dr3.ba.schur_solve"]
+    for i in solves:
+        kids = [k for k, p in found if p == i]
+        steps = kids.count("dr3.ba.cg_step")
+        assert kids == (["dr3.ba.reduce", "dr3.ba.cg_setup"]
+                        + ["dr3.ba.cg_read", "dr3.ba.cg_step"] * steps
+                        + ["dr3.ba.cg_read", "dr3.ba.back_substitute"])
+    plain = sn.bundle_adjust_snavely(prob, ITERS, solver="pcg")
+    assert torch.equal(plain.final_cost, res.final_cost) and plain.cg_iters == res.cg_iters
 
 
 def test_no_range_without_a_profiler(prob, monkeypatch):
