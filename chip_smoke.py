@@ -121,7 +121,12 @@ Phases (any failure raises, so the exit code is non-zero):
    ``--out`` reloads with the same counts, zexplicit within 1e-3 of pcg
    through the library (cg_tol 1e-5, q_eta 0); (d) ``least_squares`` on
    Powell's function (cost below 1e-8) and the plain and robust curve fits
-   of tests/test_lm_bal.py, within 1e-4 of the port's CPU results.
+   of tests/test_lm_bal.py, within 1e-4 of the port's CPU results. After
+   it, the BAL kernels' rows: csrc/schur.cu at bal-dubrovnik-88's shapes
+   (``phase_schur_kernel``), then csrc/schur_mv.cu, the generic PCG's
+   operator S p, at bal-ladybug-1723's counts (``phase_schur_mv``: within
+   1e-6 of its plain version on the card, bit-equal repeats, two launches
+   a CG iteration of a 2-iteration auto solve).
 
 8. legacy, two-view, distributed — (a) LegacySLAM(Pinhole.kitti(),
    Config(fast_threshold=8.0, cell_size=12)) over the slice's first 10
@@ -232,7 +237,8 @@ also per general frame of phase 9(a), device us, bound, share of bound,
 library us; the legacy path's two rows per legacy frame; the co-visible
 kernels ``dr3_schur_factor`` and ``dr3_schur_blocks`` at bal-dubrovnik-88's
 shapes, each output within 1e-5 of its plain version's, the block kernel's
-library call the replaced dense ``Z.T @ Z``, after phase 7) and the legacy
+library call the replaced dense ``Z.T @ Z``, after phase 7; ``dr3_schur_mv``
+at bal-ladybug-1723's, its library call the two replaced einsums) and the legacy
 path's launches are printed before the last three lines of stdout: a JSON
 object of per-kernel results (launches: phases 4, 5, 9(a) and 10 together;
 K4's ``remap`` timed at the descriptor patches, ``warp`` at the pair
@@ -1746,6 +1752,93 @@ def phase_schur_kernel(card):
     return f_row, row
 
 
+LADYBUG = (1723, 156502, 678718)    # bal-ladybug-1723's cameras, points, observations
+
+
+def phase_schur_mv(card):
+    """The kernels of csrc/schur_mv.cu at bal-ladybug-1723's counts
+    (perfbench/gen/bal_route.py's route, its first LM iteration's reduced
+    system at lambda 1e-3, a random p): S p within 1e-6 of its largest
+    entry from the plain version's run on the card, bit-equal on a repeat,
+    and against the products the operator ran before (two [O, 9, 3]
+    einsums, cuBLAS batched GEMVs, with their gathers and table sums); a
+    table row whose library call is the two einsums; a 2-iteration auto
+    solve, which picks the generic pcg path, launching the kernels twice a
+    CG iteration. Returns (the row, the solve's launches, its CG
+    iterations)."""
+    from dr3_tpu_torch.ba import snavely as sn
+    from dr3_tpu_torch.ba.schur_core import PCG, assemble_blocks, reduce_system
+    from dr3_tpu_torch.io.bal import BALData
+    from dr3_tpu_torch.ops import schur_mv as smv
+    from dr3_tpu_torch.tools.cudatime import whole_window
+    from perfbench.gen.bal_route import route_case
+
+    start, _ = route_case(*LADYBUG, SEED)
+    prob = sn.bal_to_snavely(BALData(*(start[k] for k in ("cam_params", "points", "obs_cam",
+                                                           "obs_pt", "obs_uv"))), device=DEV)
+    K, P, O = prob.n_cams, prob.n_points, prob.n_obs
+    if sn._pick_method(prob, "auto") != ("pcg", False):
+        raise AssertionError(f"auto routes {K} x {P} x {O} to {sn._pick_method(prob, 'auto')}")
+    res = sn.linearize(prob, 1e9)
+    blocks = assemble_blocks(res.r, res.Jc, res.Jp, prob.obs_cam, prob.obs_pt,
+                             (prob.obs_w > 0) & res.valid, K, P)
+    red = reduce_system(blocks, torch.tensor(1e-3, device=DEV), prob.cam_fixed)
+    cg = PCG(red, prob.cam_fixed, 100, 1e-2, 0.1)
+    if cg.keyed is None:
+        raise AssertionError("the generic path's PCG did not take the keyed kernels")
+    args = cg.keyed
+    d_pt, d_cam = args[3].shape[1], args[4].shape[1]
+    x = torch.as_tensor(np.random.default_rng(SEED).standard_normal((K, 9)),
+                        dtype=torch.float32, device=DEV)
+    got = smv.schur_mv(*args, x)
+    want = smv._schur_mv_plain(*args, x)
+    scale = float(want.abs().max())
+    err = float((got - want).abs().max()) / scale
+    same = torch.equal(got, want)
+    if not err <= 1e-6:
+        raise AssertionError(f"dr3_schur_mv: {err:.3e} of its scale from the plain version")
+    if not torch.equal(smv.schur_mv(*args, x), got):
+        raise AssertionError("dr3_schur_mv: a repeat differs")
+    b = red.blocks
+
+    def products():
+        xk = x * cg.keep_c
+        u = red.by_pt(torch.einsum("ocj,oc->oj", b.AtB, red.to_obs(xk)))
+        v = torch.einsum("pij,pj->pi", red.Hpp_inv, u)
+        y = torch.einsum("kcd,kd->kc", red.Hcc_d, xk) - red.by_cam(
+            torch.einsum("ocj,oj->oc", b.AtB, v[b.obs_pt]))
+        return y * cg.keep_c + x * cg.fixed_c
+
+    p_err = float((got - products()).abs().max()) / scale
+    xo = red.to_obs(x * cg.keep_c)
+    vo = torch.randn((O, 3), device=DEV)
+    row = measure(lambda: smv.schur_mv(*args, x), lambda: smv._schur_mv_plain(*args, x),
+                  library=lambda: (torch.einsum("ocj,oc->oj", b.AtB, xo),
+                                   torch.einsum("ocj,oj->oc", b.AtB, vo)),
+                  bound=bounds.schur_mv(K, P, O, d_pt, d_cam), shape=f"{K} x {P} x {O}",
+                  max_abs_err=err)
+    products_ms, _ = device_ms(products, n=20)
+    passes, _ = whole_window(lambda: smv.schur_mv(*args, x), 100)
+    split = ", ".join(f"{'point' if 'point' in name else 'camera'} pass {us / n:.2f} us x{n}"
+                      for name, (n, us) in passes.items() if "schur_mv" in name and n)
+    log(f"[schur_mv] dr3_schur_mv at {K} cameras x {P} points x {O} observations (tables "
+        f"{P} x {d_pt}, {K} x {d_cam}): S p within {err:.2e} of its scale from the plain "
+        f"version on the card (bit-equal: {same}), {p_err:.2e} from the parent's products; "
+        f"per launch {split}; the parent's whole operator {1e3 * products_ms:.2f} us; two-pass "
+        f"bytes {row['two_pass_bytes']} ({1e3 * row['two_pass_ms']:.3f} us at 3.35 TB/s, share "
+        f"{100 * row['two_pass_ms'] / row['ms']:.1f}%) ({card})")
+    log_row("dr3_schur_mv", row, card)
+    n0 = smv.schur_mv.launches
+    r = sn.bundle_adjust_snavely(prob, 2, huber_delta=1e9)
+    launched = smv.schur_mv.launches - n0
+    log(f"[schur_mv] a 2-iteration auto solve: {r.cg_iters} CG iterations, {launched} launches "
+        f"of the two kernels, cost {float(r.initial_cost):.2f} -> {float(r.final_cost):.2f} "
+        f"({card})")
+    if launched != 2 * r.cg_iters or r.cg_iters == 0:
+        raise AssertionError(f"{launched} launches in {r.cg_iters} CG iterations")
+    return row, launched, r.cg_iters
+
+
 def phase_bal(card, vo):
     """Phase 7: BAL bundle adjustment (module docstring). Returns the
     launches of dr3_schur_factor and dr3_schur_blocks in 7(a)'s 5-iteration
@@ -2939,6 +3032,7 @@ def main():
     phase_cli(card, frames[:N_FRAMES], gt[:N_FRAMES], slice_run)
     bal_launches = phase_bal(card, slice_run["vo"])
     schur_rows = dict(zip(("dr3_schur_factor", "dr3_schur_blocks"), phase_schur_kernel(card)))
+    mv_row, mv_launches, mv_cg = phase_schur_mv(card)
     legacy_launches, legacy_rows, legacy_in_path = phase_8(card, frames, gt, slice_run, loop_vo)
     long_launches, long_general = phase_long(card)
     entry_launches = phase_entry(card)
@@ -3025,8 +3119,10 @@ def main():
                    "sparse_align": s["sparse_align"], "remap": s["remap_xy"], "warp": 0}
     for name, n in zip(schur_rows, bal_launches):
         per[name] = f"{n / 5:.1f} per zexplicit LM iteration (phase 7(a), {n} in 5)"
+    per["dr3_schur_mv"] = (f"{mv_launches / mv_cg:.1f} per generic CG iteration (a Ladybug "
+                           f"solve of 2 LM iterations, {mv_launches} in {mv_cg})")
     print_table({**{k: results[k] for k in vo_rows}, **pano_rows, **k4_rows, **loop_rows,
-                 **legacy_rows, **schur_rows}, per, in_path, card)
+                 **legacy_rows, **schur_rows, "dr3_schur_mv": mv_row}, per, in_path, card)
     log(f"[legacy] launches over its {LEGACY_N} frames (the VO path's are the JSON line's): "
         f"{json.dumps(legacy_launches)}")
     meta = {
@@ -3061,6 +3157,13 @@ def main():
                         **{k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                              "bound_by", "library_ms", "host_ms",
                                              "plain_host_ms")}})
+    # launches: phase_schur_mv's 2-iteration Ladybug solve
+    kernels.append({"name": "schur_mv", "route": "cuda", "source": "dr3_tpu_torch/csrc/schur_mv.cu",
+                    "replaces": None, "launches": mv_launches,
+                    "launches_per_cg_iter": mv_launches / mv_cg,
+                    **{k: mv_row[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                              "bound_by", "library_ms", "host_ms",
+                                              "plain_host_ms")}})
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -52,6 +52,7 @@ import torch
 
 from dr3_tpu_torch.geometry.linalg import (_chol_factor_small, _chol_inverse_factored,
                                            _chol_solve_factored, chol3, inv3x3)
+from dr3_tpu_torch.ops.schur_mv import schur_mv
 from dr3_tpu_torch.utils.timing import span
 
 
@@ -515,7 +516,11 @@ class PCG:
     per iteration (:func:`_pcg`); on the card a CUDA graph WHILE node reads
     it (pipelines/vo.py's loop program). Block-Jacobi (SCHUR_JACOBI,
     reference src/optimizer.cpp:161) preconditioner; the operator's data
-    are read-only attributes."""
+    are read-only attributes. Where both sums are keyed tables and there is
+    no global border (past the one-hot's size limit: BAL's generic path),
+    the operator S p is :func:`dr3_tpu_torch.ops.schur_mv.schur_mv`, two
+    kernels over the tables; otherwise products with the one-hot E, the
+    sorted scan or the border, as the VO window BA runs them."""
 
     def __init__(self, red: Reduced, cam_fixed, cg_iters: int, cg_tol: float,
                  q_eta: float):
@@ -532,6 +537,13 @@ class PCG:
         self.M_inv = _chol_inverse_factored(_chol_factor_small(M))
         self.keep_c = red.keep[:, None]
         self.fixed_c = 1.0 - self.keep_c
+        pt_tbl = getattr(red.by_pt, "table", None)
+        cam_tbl = getattr(red.by_cam, "table", None)
+        self.keyed = None
+        if pt_tbl is not None and cam_tbl is not None and red.border is None:
+            self.keyed = (b.AtB.contiguous(), b.obs_cam, b.obs_pt, pt_tbl, cam_tbl,
+                          red.Hpp_inv.contiguous(), red.Hcc_d.contiguous(),
+                          red.keep.contiguous())
         if red.border is not None:
             S_gg, self.S_gc, rhs_g = red.border
             G = S_gg.shape[0]
@@ -545,6 +557,8 @@ class PCG:
     def s_mv(self, x):
         red, b = self.red, self.red.blocks
         xc, xg = x
+        if self.keyed is not None:
+            return schur_mv(*self.keyed, xc.contiguous()), xg
         xk = xc * self.keep_c
         u = red.by_pt(torch.einsum("ocj,oc->oj", b.AtB, red.to_obs(xk)))
         v = torch.einsum("pij,pj->pi", red.Hpp_inv, u)

@@ -50,6 +50,8 @@ SIGNATURES = {
     "dr3_warp_shortcut_tiles": [*[_F] * 9, _I, _I, _I, _I, _P, _P, _P],
     "dr3_schur_factor": [*[_P] * 10, _I, _I, _P, _P, _P, _P],
     "dr3_schur_blocks": [*[_P] * 7, _I, _P, _P],
+    "dr3_schur_mv": [*[_P] * 4, _I, _P, _I, *[_P] * 4, ctypes.c_longlong, _I, _I, _I, _P, _P,
+                     _P],
     # graph assembly (csrc/graph_loop.cu): no stream argument but the launch's
     "dr3_gl_info": [ctypes.POINTER(_I)] * 3,
     "dr3_gl_graph_create": [_PP],

@@ -124,6 +124,32 @@ def schur_blocks(pairs, n_cams: int, n_obs: int) -> dict:
     return {**bound(n_bytes, n_ops), "pairs": n, "l2_bytes": 2 * 36 * 4 * n}
 
 
+# the generic PCG's operator S p (csrc/schur_mv.cu) at BAL's 9 camera parameters
+OPS_SCHUR_MV_OBS = 63 + 54   # per observation: the point pass's xk 9, AtB^T xk 27
+                             # products and 24 sums, the sum into u 3; the camera
+                             # pass's AtB v 27 products and 18 sums, the sum into y 9
+OPS_SCHUR_MV_POINT = 15      # per point: Hpp^-1 u, 9 products and 6 sums
+OPS_SCHUR_MV_CAM = 199       # per camera: xk 9, Hcc_d xk 81 products and 72 sums, the
+                             # difference 9, the blend 27 and 1 - keep
+
+
+def schur_mv(n_cams: int, n_points: int, n_obs: int, d_pt: int, d_cam: int) -> dict:
+    """dr3_schur_mv, both launches: bytes of the coupling blocks (27 floats
+    an observation), the observations' camera and point ids and the two
+    tables (int64), Hpp^-1, Hcc_d, keep and x read once and y written once;
+    operations per observation, point and camera. Also ``two_pass_bytes``
+    and ``two_pass_ms``: what the two passes move, the coupling blocks read
+    by each (more than L2 holds at BAL's sizes) and the points' v written
+    and read once between them."""
+    K, P, O = n_cams, n_points, n_obs
+    n_bytes = (4 * 27 * O + 8 * 2 * O + 8 * (P * d_pt + K * d_cam) + 4 * 9 * P
+               + 4 * (81 + 1 + 9 + 9) * K)
+    two_pass = n_bytes + 4 * 27 * O + 4 * 2 * 3 * P
+    n_ops = O * OPS_SCHUR_MV_OBS + P * OPS_SCHUR_MV_POINT + K * OPS_SCHUR_MV_CAM
+    return {**bound(n_bytes, n_ops), "two_pass_bytes": int(two_pass),
+            "two_pass_ms": 1e3 * two_pass / HBM_BYTES_PER_S}
+
+
 def bound(n_bytes: float, n_ops: float) -> dict:
     """{"bound_ms", "bound_by", "bytes", "ops"} of a call's work."""
     t_bytes = n_bytes / HBM_BYTES_PER_S

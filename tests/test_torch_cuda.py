@@ -663,18 +663,114 @@ def test_bal_assembly_card_matches_cpu(dev):
         assert err <= 1e-5 * float(want.abs().max()), (name, err)
 
 
-@pytest.mark.parametrize("solver", ["zexplicit", "pcg", "explicit"])
-def test_bundle_adjust_snavely_repeats_bit_equal(dev, solver):
+@pytest.mark.parametrize("solver", ["zexplicit", "pcg", "explicit", "pcg_generic"])
+def test_bundle_adjust_snavely_repeats_bit_equal(dev, solver, monkeypatch):
     """Two LM runs give the same bits (the point sums a fixed-order table,
     the camera sums 0/1 products, each co-visible block of S one owner's
-    fixed-order sum) and the same CG iterations."""
-    from dr3_tpu_torch.ba.snavely import bundle_adjust_snavely
+    fixed-order sum) and the same CG iterations. ``pcg_generic``: the
+    one-hot's limit lowered, so the solve takes the generic pcg path, whose
+    operator is the two kernels of csrc/schur_mv.cu, launched twice a CG
+    iteration."""
+    from dr3_tpu_torch.ba import schur_core, snavely
+    from dr3_tpu_torch.ops import schur_mv
 
     p = _bal_problem(dev)
-    a = bundle_adjust_snavely(p, 5, huber_delta=1e9, solver=solver)
-    b = bundle_adjust_snavely(p, 5, huber_delta=1e9, solver=solver)
+    if solver == "pcg_generic":
+        monkeypatch.setattr(snavely, "_ONEHOT_MAX_ELEMS", 0)
+        monkeypatch.setattr(schur_core, "_ONEHOT_MAX_ELEMS", 0)
+        solver = "pcg"
+        assert snavely._pick_method(p, solver) == ("pcg", False)
+    n0 = schur_mv.schur_mv.launches
+    a = snavely.bundle_adjust_snavely(p, 5, huber_delta=1e9, solver=solver)
+    b = snavely.bundle_adjust_snavely(p, 5, huber_delta=1e9, solver=solver)
     assert _bits_equal(a.problem, b.problem) and torch.equal(a.final_cost, b.final_cost)
     assert a.cg_iters == b.cg_iters and float(a.final_cost) < float(a.initial_cost)
+    generic = schur_core._ONEHOT_MAX_ELEMS == 0
+    assert schur_mv.schur_mv.launches - n0 == (4 * a.cg_iters if generic else 0)
+
+
+def _keyed_pcg(dev, case, monkeypatch):
+    """A PCG over the keyed tables on the card: ``route``, bal-ladybug-1723's
+    route (perfbench/gen/bal_route.py) cut to a tenth of its cameras, points
+    and observations, at its first LM iteration; ``long_track``, 40 cameras
+    that each see all 2,000 points (random weighted Jacobians, a tenth of
+    the rows inactive); ``six_dof``, the same at 6 camera parameters."""
+    from dr3_tpu_torch.ba import schur_core
+    from dr3_tpu_torch.ba import snavely as sn
+    from dr3_tpu_torch.io.bal import BALData
+    from perfbench.gen.bal_route import route_case
+
+    monkeypatch.setattr(schur_core, "_ONEHOT_MAX_ELEMS", 0)
+    lam = torch.tensor(1e-3, device=dev)
+    if case == "route":
+        start, _ = route_case(172, 15650, 67872, 3)
+        p = sn.bal_to_snavely(BALData(*(start[k] for k in ("cam_params", "points", "obs_cam",
+                                                           "obs_pt", "obs_uv"))), device=dev)
+        res = sn.linearize(p, 1e9)
+        blocks = schur_core.assemble_blocks(res.r, res.Jc, res.Jp, p.obs_cam, p.obs_pt,
+                                            (p.obs_w > 0) & res.valid, p.n_cams, p.n_points)
+        fixed = p.cam_fixed
+    else:
+        K, P, C = 40, 2000, (6 if case == "six_dof" else 9)
+        g = torch.Generator(device=dev).manual_seed(7)
+        active = torch.rand(K * P, generator=g, device=dev) > 0.1
+        w = active.float()
+        r = torch.randn(K * P, 2, generator=g, device=dev) * w[:, None]
+        Jc = torch.randn(K * P, 2, C, generator=g, device=dev) * w[:, None, None]
+        Jp = torch.randn(K * P, 2, 3, generator=g, device=dev) * w[:, None, None]
+        blocks = schur_core.assemble_blocks(
+            r, Jc, Jp, torch.arange(K, device=dev).repeat(P),
+            torch.arange(P, device=dev).repeat_interleave(K), active, K, P)
+        fixed = torch.zeros(K, dtype=torch.bool, device=dev)
+        fixed[[0, 3]] = True
+    red = schur_core.reduce_system(blocks, lam, fixed)
+    cg = schur_core.PCG(red, fixed, 100, 1e-2, 0.1)
+    assert cg.keyed is not None
+    return cg, fixed
+
+
+@pytest.mark.parametrize("case", ["route", "long_track", "six_dof"])
+def test_schur_mv_kernel_matches_plain(dev, case, monkeypatch):
+    """csrc/schur_mv.cu against its plain version: bit-equal to it run on
+    the card (the same float32 operations in the same order), within 1e-6
+    of its largest entry from it run on the CPU; fixed cameras passed
+    through bit for bit, the same bits on a repeat, two launches a call."""
+    from dr3_tpu_torch.ops import schur_mv
+
+    cg, fixed = _keyed_pcg(dev, case, monkeypatch)
+    args = cg.keyed
+    if case == "long_track":
+        assert args[3].shape[1] == args[6].shape[0]        # a point row as wide as K
+    g = torch.Generator(device=dev).manual_seed(11)
+    for _ in range(3):
+        x = torch.randn(args[6].shape[:2], generator=g, device=dev)
+        n0 = schur_mv.schur_mv.launches
+        got = schur_mv.schur_mv(*args, x)
+        torch.cuda.synchronize()
+        assert schur_mv.schur_mv.launches - n0 == 2
+        assert torch.equal(got, schur_mv._schur_mv_plain(*args, x))
+        want = schur_mv._schur_mv_plain(*(a.cpu() for a in args), x.cpu()).to(dev)
+        assert float((got - want).abs().max()) <= 1e-6 * float(want.abs().max())
+        assert torch.equal(got[fixed], x[fixed])
+        assert torch.equal(schur_mv.schur_mv(*args, x), got)
+
+
+def test_schur_mv_rejects_bad_inputs(dev, monkeypatch):
+    """The wrapper refuses what the kernels do not take: int32 ids, a
+    non-contiguous block table, a camera block size they are not built
+    for."""
+    from dr3_tpu_torch.ops import schur_mv
+
+    cg, _ = _keyed_pcg(dev, "six_dof", monkeypatch)
+    AtB, oc, op, pt_tbl, cam_tbl, Hinv, Hcc, keep = cg.keyed
+    x = torch.zeros(Hcc.shape[:2], device=dev)
+    with pytest.raises(ValueError, match="obs_cam"):
+        schur_mv.schur_mv(AtB, oc.int(), op, pt_tbl, cam_tbl, Hinv, Hcc, keep, x)
+    with pytest.raises(ValueError, match="contiguous"):
+        schur_mv.schur_mv(AtB, oc, op, pt_tbl.t().contiguous().t(), cam_tbl, Hinv, Hcc, keep, x)
+    with pytest.raises(ValueError, match="size 5"):
+        schur_mv.schur_mv(AtB[:, :5].contiguous(), oc, op, pt_tbl, cam_tbl, Hinv,
+                          Hcc[:, :5, :5].contiguous(), keep, x[:, :5].contiguous())
 
 
 def test_bal_products_run_in_float32_without_tf32(dev):
